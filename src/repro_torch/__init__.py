@@ -1,0 +1,11 @@
+"""repro_torch — the frugal streaming quantile system on PyTorch and CUDA.
+
+A port of the JAX package ``repro`` that keeps its module layout and public
+names. The dense per-group ingest path runs on an NVIDIA Hopper card through
+one hand-written CUDA kernel (``kernels/csrc/frugal_update.cu``); every
+module keeps a plain PyTorch version of the same arithmetic, which the CPU
+tests hold bit-for-bit against the JAX package.
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"`` (``configs.platform.resolve_device``).
+"""

@@ -1,0 +1,26 @@
+"""repro_torch.api — the fleet API of the port.
+
+  spec.py  — FleetSpec (static fleet description, single placement) and
+             StreamCursor (seed, t_offset, g_offset).
+  fleet.py — QuantileFleet: create / ingest / ingest_stream / estimate over
+             a (G × Q) lane plane, and from_jax_state, which continues a
+             JAX package fleet in the port.
+"""
+from repro_torch.core.drift import DriftConfig
+from repro_torch.core.program import (LaneProgram, StateLayout, make_program,
+                                      registered_families)
+
+from .fleet import QuantileFleet, from_jax_state
+from .spec import FleetSpec, StreamCursor
+
+__all__ = [
+    "DriftConfig",
+    "LaneProgram",
+    "StateLayout",
+    "make_program",
+    "registered_families",
+    "FleetSpec",
+    "StreamCursor",
+    "QuantileFleet",
+    "from_jax_state",
+]

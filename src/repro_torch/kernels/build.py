@@ -1,0 +1,103 @@
+"""Build and load the CUDA kernel library at first use.
+
+``nvcc`` compiles ``csrc/frugal_update.cu`` for ``sm_90a`` into a shared
+library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds). The library lands in ``build/repro_torch/``
+at the repository root, named by a hash of the sources and flags, so an
+edited source is never served by a stale build. A failed build raises with
+the compiler's output.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("frugal_update.cu", "frugal_tick.cuh")
+REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
+# -fmad=false: no contraction of a*b+c into an FMA anywhere (hazard 3 of
+# frugal_tick.cuh); -Xptxas -v: registers and spills per instantiation,
+# kept in the build log.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildResult:
+    path: Path          # the shared library
+    log: str            # nvcc's output (ptxas register and spill lines)
+    seconds: float      # compile time; 0.0 when an existing build was used
+
+
+def find_nvcc() -> str:
+    """The CUDA compiler: on PATH, else under CUDA_HOME, else the default
+    toolkit location."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda); "
+                       "the CUDA kernels build only where the toolkit is")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_library(force: bool = False) -> BuildResult:
+    """Compile the kernel library unless a build of these exact sources
+    exists (``force`` rebuilds anyway)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"libfrugal_update_{_source_hash()}.so"
+    log_path = out.with_suffix(".log")
+    if out.exists() and not force:
+        log = log_path.read_text() if log_path.exists() else ""
+        return BuildResult(out, log, 0.0)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           str(CSRC / "frugal_update.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    os.replace(tmp, out)
+    log_path.write_text(log)
+    return BuildResult(out, log, seconds)
+
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def load_library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use), with the C
+    signatures declared: every pointer and the stream as ``c_void_p``, the
+    sizes as ``c_int64``, the int32 scalars as ``c_int32``."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build_library().path))
+        fn = lib.frugal_dense_launch
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                       + [ctypes.c_int64] * 3 + [ctypes.c_int32] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB

@@ -1,0 +1,76 @@
+"""Entry points of the dense ingest path (the dense half of the JAX
+package's ``kernels/ops.py``).
+
+  * ``frugal_update_auto`` — one kernel launch over the whole [T, G] block
+    (the JAX package's compiled path: B1 on a TPU, B4 on a GPU).
+  * ``frugal_update_blocked`` — the same kernel launched once per
+    ``block_t`` rows with the tick offset advanced (B2, the revisit grid),
+    whose result must not depend on (block_g, block_t).
+
+Both take and return the program's plane tuple, pack it into the
+serialized words around the kernel, and fan [T, G] items out to G·Q lanes
+(``lanes_per_group`` = Q) by index on the device. The JAX padding contract
+(padded lanes dropped, NaN-padded ticks as no-ops) holds without padded
+copies: the kernel masks the ragged lane edge and stops its row loop at T.
+Dispatch is by the tensors' device: CUDA runs the kernel, CPU the plain
+version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import rng as crng
+
+from .frugal_update import frugal_program_dense
+
+
+def _as_seed(key=None, seed=None) -> int:
+    if seed is not None:
+        return crng.seed_from_key(seed)
+    if key is None:
+        raise ValueError("need key= or seed=")
+    return crng.seed_from_key(key)
+
+
+def _dense(items, planes, quantile, seed, t_offset, g_offset, program,
+           lanes_per_group, block_g, block_t):
+    planes = tuple(planes)
+    device = planes[0].device
+    if items.device != device:
+        raise ValueError(f"items on {items.device}, state on {device}")
+    items = items.to(torch.float32).contiguous()
+    lanes = planes[0].shape[0]
+    q = torch.broadcast_to(
+        torch.as_tensor(quantile, dtype=torch.float32, device=device),
+        (lanes,)).contiguous()
+    layout = program.layout
+    words = tuple(w.contiguous() for w in layout.pack_planes(planes))
+    t_len = items.shape[0]
+    step = t_len if block_t is None else block_t
+    for r0 in range(0, t_len, max(step, 1)):
+        words = frugal_program_dense(
+            program, items[r0:r0 + step], words, q, seed,
+            t_offset=crng.wrap_i32(t_offset + r0), g_offset=g_offset,
+            lanes_per_group=lanes_per_group, block_g=block_g)
+    return layout.unpack_words(words)
+
+
+def frugal_update_blocked(items, planes, quantile, seed, t_offset=0,
+                          g_offset=0, *, program, block_g: int = 256,
+                          block_t: int = 256, lanes_per_group: int = 1):
+    """The dense ingest as launches of ``block_t`` rows, ``block_g``
+    threads per CUDA block. Bit-identical for every block shape."""
+    if block_t <= 0:
+        raise ValueError(f"block_t must be positive, got {block_t}")
+    return _dense(items, planes, quantile, crng.seed_from_key(seed),
+                  t_offset, g_offset, program, lanes_per_group, block_g,
+                  block_t)
+
+
+def frugal_update_auto(items, planes, quantile, key=None, *, seed=None,
+                       program, t_offset=0, g_offset=0, lanes_per_group=1,
+                       block_g: int = 256):
+    """The dense ingest as one launch over all of ``items``. ``key`` (an
+    int or uint32 key words) or ``seed`` gives the counter seed."""
+    return _dense(items, planes, quantile, _as_seed(key, seed), t_offset,
+                  g_offset, program, lanes_per_group, block_g, None)

@@ -16,6 +16,7 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line("markers", "kernel: Pallas kernel validation tests")
     config.addinivalue_line("markers", "slow: long-running subprocess tests")
+    config.addinivalue_line("markers", "cuda: needs a CUDA device; skips without one")
 
 
 @pytest.fixture(scope="session")

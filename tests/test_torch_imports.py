@@ -1,0 +1,53 @@
+"""The port stands alone: no module of ``repro_torch`` imports JAX or the
+JAX package ``repro``, at run time or in its sources."""
+import os
+import re
+import subprocess
+import sys
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "src")
+PKG = os.path.join(SRC, "repro_torch")
+
+
+def port_modules():
+    mods = []
+    for dirpath, _, files in os.walk(PKG):
+        for fn in sorted(files):
+            if fn.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, fn), SRC)
+                mod = rel[:-3].replace(os.sep, ".")
+                mods.append(mod[:-len(".__init__")]
+                            if mod.endswith(".__init__") else mod)
+    return sorted(mods)
+
+
+def test_importing_every_module_loads_neither_jax_nor_repro():
+    mods = port_modules()
+    assert "repro_torch.kernels.frugal_update" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_sources_name_no_jax_or_repro_import():
+    pattern = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
+                         r"(\.|\s))", re.MULTILINE)
+    offenders = []
+    for dirpath, _, files in os.walk(PKG):
+        for fn in files:
+            if fn.endswith(".py"):
+                path = os.path.join(dirpath, fn)
+                with open(path, encoding="utf-8") as f:
+                    for m in pattern.finditer(f.read()):
+                        offenders.append(f"{path}: {m.group(0).strip()}")
+    assert not offenders, offenders

@@ -1,0 +1,433 @@
+"""The port's dense kernel path against the JAX package.
+
+* CPU: ``kernels.ops.frugal_update_blocked`` / ``frugal_update_auto`` (the
+  plain PyTorch version on CPU tensors) vs the JAX grid kernel in interpret
+  mode and the JAX auto path; the committed golden file; and the kernel's
+  own per-lane arithmetic (``csrc/frugal_tick.cuh``) built for the host
+  with g++ and held against the port's plain functions.
+* Card (marker ``cuda``, skipped without a CUDA device): the CUDA kernel
+  vs the plain version on the card, every program, three block shapes.
+
+Tolerance everywhere: bit-exact (float32 compared as int32 bit patterns).
+JAX is imported inside the tests that use it: the card tests run where JAX
+is not installed (``--noconftest``, see README.md).
+"""
+import ctypes
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import drift as tdrift
+from repro_torch.core import packing as tpacking
+from repro_torch.core import program as tprogram
+from repro_torch.core import rng as trng
+from repro_torch.kernels import frugal_update as tkernel
+from repro_torch.kernels import ops as tops
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import make_torch_port_golden as golden  # noqa: E402
+
+PROGS = tprogram.test_instances()
+IDS = [p.family for p in PROGS]
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "src", "repro_torch", "kernels", "csrc")
+
+
+def jax_side(family):
+    """(jax.numpy, repro.core.frugal, repro.kernels.ops, the JAX package's
+    test instance of ``family``)."""
+    import jax.numpy as jnp
+    from repro.core import frugal, program
+    from repro.kernels import ops
+
+    prog = {p.family: p for p in program.test_instances()}[family]
+    return jnp, frugal, ops, prog
+
+
+def bits(x):
+    x = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+    return x.view(np.int32) if x.dtype == np.float32 else x
+
+
+def assert_bits_equal(a, b, what=""):
+    assert len(a) == len(b), what
+    for i, (x, y) in enumerate(zip(a, b)):
+        np.testing.assert_array_equal(bits(x), bits(y),
+                                      err_msg=f"{what} element {i}")
+
+
+def make_case(prog, g, q, t, seed=0, nan_frac=0.05):
+    """Random items (negative, duplicate and NaN ticks included), per-lane
+    targets and a non-trivial starting plane tuple, as numpy."""
+    rng = np.random.default_rng(seed)
+    lanes = g * q
+    items = rng.integers(-40, 400, (t, g)).astype(np.float32)
+    items[rng.random((t, g)) < nan_frac] = np.nan
+    quantile = np.tile(rng.uniform(0.05, 0.95, q).astype(np.float32), g)
+    planes = []
+    for f in prog.layout.plane_fields:
+        if f in prog.layout.heads:
+            planes.append(rng.normal(0.0, 150.0, lanes).astype(np.float32))
+        elif f.startswith("step"):
+            planes.append(rng.integers(-6, 7, lanes).astype(np.float32))
+        else:
+            planes.append(rng.choice([-1.0, 1.0], lanes).astype(np.float32))
+    return items, quantile, planes
+
+
+# ----------------------------------------------------------------- golden
+@pytest.fixture(scope="module")
+def golden_file():
+    return dict(np.load(golden.GOLDEN))
+
+
+def test_golden_file_reproduced_by_jax(golden_file):
+    """The JAX package still computes exactly the committed file."""
+    fresh = golden.build()
+    assert sorted(fresh) == sorted(golden_file)
+    for k in fresh:
+        np.testing.assert_array_equal(bits(fresh[k]), bits(golden_file[k]),
+                                      err_msg=k)
+
+
+@pytest.mark.parametrize("prog", PROGS, ids=IDS)
+def test_golden_plain_version(golden_file, prog):
+    g, q, t, t_off, g_off, seed = (int(v) for v in golden_file["meta"])
+    n = prog.layout.num_words
+    words = tuple(torch.from_numpy(golden_file[f"{prog.family}/in{i}"])
+                  for i in range(n))
+    out = tkernel.frugal_program_dense(
+        prog, torch.from_numpy(golden_file["items"]), words,
+        torch.from_numpy(golden_file["quantile"]), seed,
+        tuple(golden_file[f"{prog.family}/scalars"].tolist()),
+        t_offset=t_off, g_offset=g_off, lanes_per_group=q)
+    assert_bits_equal(out, [golden_file[f"{prog.family}/out{i}"]
+                            for i in range(n)], prog.family)
+
+
+# ---------------------------------------------------------- ops vs JAX ops
+@pytest.mark.parametrize("block", [(32, 64), (128, 100)], ids=str)
+@pytest.mark.parametrize("tprog", PROGS, ids=IDS)
+def test_blocked_matches_jax_grid_kernel(tprog, block):
+    """Ragged G and T, Q = 3, against the JAX revisit-grid kernel in
+    interpret mode (whose contract pads G and T to the blocks)."""
+    jnp, _, jops, jprog = jax_side(tprog.family)
+    g, q, t = 23, 3, 173
+    items, quantile, planes = make_case(tprog, g, q, t, seed=1)
+    t_off, g_off, seed = 2 ** 31 - 90, 11, -77
+    block_g, block_t = block
+    jout = jops.frugal_update_blocked(
+        jnp.repeat(jnp.asarray(items), q, axis=1),
+        tuple(jnp.asarray(p) for p in planes), jnp.asarray(quantile), seed,
+        t_off, g_off, program=jprog, block_g=block_g, block_t=block_t,
+        interpret=True, kernel="grid")
+    tout = tops.frugal_update_blocked(
+        torch.from_numpy(items), tuple(torch.from_numpy(p) for p in planes),
+        torch.from_numpy(quantile), seed, t_off, g_off, program=tprog,
+        block_g=block_g, block_t=block_t, lanes_per_group=q)
+    assert_bits_equal(jout, tout, tprog.family)
+
+
+@pytest.mark.parametrize("tprog", PROGS, ids=IDS)
+def test_auto_matches_jax_auto(tprog):
+    jnp, _, jops, jprog = jax_side(tprog.family)
+    g, q, t = 40, 3, 300
+    items, quantile, planes = make_case(tprog, g, q, t, seed=2)
+    kw = dict(t_offset=2 ** 31 - 150, g_offset=5, lanes_per_group=q)
+    jout = jops.frugal_update_auto(
+        jnp.asarray(items), tuple(jnp.asarray(p) for p in planes),
+        jnp.asarray(quantile), seed=3, program=jprog, **kw)
+    tout = tops.frugal_update_auto(
+        torch.from_numpy(items), tuple(torch.from_numpy(p) for p in planes),
+        torch.from_numpy(quantile), seed=3, program=tprog, **kw)
+    assert_bits_equal(jout, tout, tprog.family)
+
+
+def test_cpu_tensors_run_the_plain_version_without_launching():
+    prog = tprogram.make_program("2u")
+    items, quantile, planes = make_case(prog, 4, 1, 10)
+    before = tkernel.launch_count
+    tops.frugal_update_auto(torch.from_numpy(items),
+                            tuple(torch.from_numpy(p) for p in planes),
+                            torch.from_numpy(quantile), seed=0, program=prog)
+    assert tkernel.launch_count == before
+
+
+def test_dense_refuses_bad_operands():
+    prog = tprogram.make_program("2u")
+    items = torch.zeros((3, 4))
+    words = prog.layout.pack_planes((torch.zeros(4), torch.ones(4),
+                                     torch.ones(4)))
+    q = torch.full((4,), 0.5)
+    with pytest.raises(ValueError, match="state words"):
+        tkernel.frugal_program_dense(prog, items, words[:1], q, 0)
+    with pytest.raises(ValueError, match="quantile"):
+        tkernel.frugal_program_dense(prog, items, words, q[:3], 0)
+    with pytest.raises(ValueError, match="no dense kernel"):
+        tkernel.frugal_program_dense(prog, items.to("meta"),
+                                     tuple(w.to("meta") for w in words),
+                                     q.to("meta"), 0)
+
+
+# ------------------------------------------- the tick header, built on CPU
+@pytest.fixture(scope="module")
+def tick_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: the host build of "
+                    "frugal_tick.cuh cannot be compiled")
+    out = tmp_path_factory.mktemp("tick") / "libtick.so"
+    subprocess.run([gxx, "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-o", str(out), os.path.join(CSRC, "tick_host_shim.cpp")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    p, i64, i32, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, \
+        ctypes.c_int
+    lib.ft_host_counter.argtypes = [i64, p, p, p, p, p]
+    lib.ft_host_pack.argtypes = [i64, p, p, p]
+    lib.ft_host_unpack.argtypes = [i64, p, p, p]
+    lib.ft_host_window_phase.argtypes = [i64, p, i32, p, p]
+    lib.ft_host_tick.argtypes = [i, i64] + [p] * 9 + [i32] * 3
+    lib.ft_host_tick.restype = i
+    lib.ft_host_dense.argtypes = [i] + [p] * 10 + [i64] * 3 + [i32] * 5
+    lib.ft_host_dense.restype = i
+    return lib
+
+
+def ptr(a: np.ndarray):
+    assert a.flags.c_contiguous
+    return a.ctypes.data
+
+
+EDGE_TICKS = np.asarray([0, 1, -1, 2 ** 31 - 1, -2 ** 31, -2 ** 31 + 1,
+                         12345, -98765], np.int32)
+
+
+def test_header_counter_hash(tick_lib):
+    rng = np.random.default_rng(5)
+    n = 4000
+    seed = rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32)
+    t = np.concatenate([np.resize(EDGE_TICKS, 1000),
+                        rng.integers(-2 ** 31, 2 ** 31, n - 1000)]
+                       ).astype(np.int32)
+    lane = rng.integers(0, 2 ** 24, n).astype(np.int32)
+    hb = np.empty(n, np.uint32)
+    hu = np.empty(n, np.float32)
+    tick_lib.ft_host_counter(n, ptr(seed), ptr(t), ptr(lane), ptr(hb),
+                             ptr(hu))
+    args = [torch.from_numpy(x) for x in (seed, t, lane)]
+    np.testing.assert_array_equal(hb.view(np.int32),
+                                  trng.counter_bits(*args).numpy())
+    np.testing.assert_array_equal(hu.view(np.int32),
+                                  bits(trng.counter_uniform(*args)))
+
+
+def _step_domain(rng, n):
+    special = np.asarray([0.0, -0.0, 1.0, -1.0, 2.0 ** -63, -(2.0 ** -63),
+                          2.0 ** -64, 1e-40, 5e-45, 2.0 ** 32, -(2.0 ** 32),
+                          1e38, np.inf, -np.inf, np.nan, 4294967040.0,
+                          -4294967040.0, 0.75, 3.5], np.float32)
+    rand = (rng.standard_normal(n) * 10.0 ** rng.integers(-30, 30, n))
+    return np.concatenate([special, rand.astype(np.float32)])
+
+
+def test_header_packing_domain(tick_lib):
+    rng = np.random.default_rng(6)
+    step = _step_domain(rng, 3000)
+    for sgn in (1.0, -1.0):
+        sign = np.full_like(step, sgn)
+        hp = np.empty(step.size, np.uint32)
+        tick_lib.ft_host_pack(step.size, ptr(step), ptr(sign), ptr(hp))
+        tp = tpacking.pack_step_sign(torch.from_numpy(step),
+                                     torch.from_numpy(sign))
+        np.testing.assert_array_equal(hp.view(np.int32), tp.numpy())
+    words = np.concatenate([rng.integers(-2 ** 31, 2 ** 31, 3000),
+                            [0, -2 ** 31, 1, -1]]).astype(np.int32)
+    hs = np.empty(words.size, np.float32)
+    hg = np.empty(words.size, np.float32)
+    tick_lib.ft_host_unpack(words.size, ptr(words), ptr(hs), ptr(hg))
+    ts, tg = tpacking.unpack_step_sign(torch.from_numpy(words))
+    np.testing.assert_array_equal(hs.view(np.int32), bits(ts))
+    np.testing.assert_array_equal(hg.view(np.int32), bits(tg))
+
+
+@pytest.mark.parametrize("w", [1, 2, 7, 96, 4096])
+def test_header_window_phase_on_negative_ticks(tick_lib, w):
+    rng = np.random.default_rng(w)
+    t = np.concatenate([EDGE_TICKS, np.arange(-3 * w - 5, 3 * w + 5),
+                        rng.integers(-2 ** 31, 2 ** 31, 2000)]
+                       ).astype(np.int32)
+    ha = np.empty(t.size, np.uint8)
+    hb = np.empty(t.size, np.uint8)
+    tick_lib.ft_host_window_phase(t.size, ptr(t), w, ptr(ha), ptr(hb))
+    ra, rb = tdrift.window_phase(torch.from_numpy(t), w)
+    np.testing.assert_array_equal(ha.astype(bool), ra.numpy())
+    np.testing.assert_array_equal(hb.astype(bool), rb.numpy())
+
+
+@pytest.mark.parametrize("prog", PROGS, ids=IDS)
+def test_header_tick_matches_program_tick(tick_lib, prog):
+    """One tick of each family on random and edge states: NaN items,
+    steps at the packing limits, window boundaries at wrapped ticks."""
+    rng = np.random.default_rng(7)
+    n = 3000
+    fields = ("m", "step", "sign", "m2", "step2", "sign2")
+    planes = {
+        "m": rng.normal(0.0, 100.0, n).astype(np.float32),
+        "step": np.concatenate([[4294967040.0, -4294967040.0, 2.0 ** -63,
+                                 0.0, -0.0],
+                                rng.integers(-9, 10, n - 5)]
+                               ).astype(np.float32),
+        "sign": rng.choice([-1.0, 1.0], n).astype(np.float32),
+    }
+    planes["m2"] = rng.normal(0.0, 100.0, n).astype(np.float32)
+    planes["step2"] = rng.integers(-9, 10, n).astype(np.float32)
+    planes["sign2"] = rng.choice([-1.0, 1.0], n).astype(np.float32)
+    item = rng.normal(0.0, 100.0, n).astype(np.float32)
+    item[::7] = np.nan
+    item[::11] = planes["m"][::11]          # ties
+    u = trng.counter_uniform(3, 9, torch.arange(n, dtype=torch.int32))
+    q = rng.uniform(0.01, 0.99, n).astype(np.float32)
+    scalars = prog.scalar_values() + (0, 0)
+    for t in (-2 ** 31, -97, -96, 0, 96, 2 ** 31 - 1):
+        host = {f: planes[f].copy() for f in fields}
+        rc = tick_lib.ft_host_tick(
+            tkernel.FAMILY_IDS[prog.kernel_family], n,
+            *[ptr(host[f]) for f in fields], ptr(item), ptr(u.numpy()),
+            ptr(q), t, scalars[0], scalars[1])
+        assert rc == 0
+        ctx = tprogram.frugal.TickCtx(
+            quantile=torch.from_numpy(q), t=t, seed=3,
+            lanes=torch.arange(n, dtype=torch.int32),
+            scalars=prog.scalar_values())
+        want = prog.run_tick(tuple(torch.from_numpy(planes[f])
+                                   for f in prog.layout.plane_fields),
+                             torch.from_numpy(item), u, ctx)
+        assert_bits_equal([host[f] for f in prog.layout.plane_fields], want,
+                          f"{prog.family} t={t}")
+
+
+@pytest.mark.parametrize("tprog", PROGS, ids=IDS)
+def test_header_dense_run_matches_jax(tick_lib, tprog):
+    """The kernel's whole per-lane program (ft_run_lane), host-built, vs
+    the JAX scan: words in, T ticks across the int32 wrap, words out."""
+    jnp, jfrugal, _, jprog = jax_side(tprog.family)
+    g, q, t = 30, 3, 400
+    items, quantile, planes = make_case(tprog, g, q, t, seed=8)
+    t_off, g_off, seed = 2 ** 31 - 200, 2 ** 31 - 50, 99
+    layout = jprog.layout
+    jp, _ = jfrugal.program_process_seeded(
+        jprog, tuple(jnp.asarray(p) for p in planes), jnp.asarray(items),
+        seed, jnp.asarray(quantile), t_offset=t_off, g_offset=g_off,
+        lanes_per_group=q)
+    want = [np.asarray(w) for w in layout.pack_planes(jp)]
+    words = [np.ascontiguousarray(np.asarray(w)) for w in layout.pack_planes(
+        tuple(jnp.asarray(p) for p in planes))]
+    outs = [np.empty_like(w) for w in words]
+    pin = [ptr(w) for w in words] + [None] * (4 - len(words))
+    pout = [ptr(o) for o in outs] + [None] * (4 - len(outs))
+    sc = tprog.scalar_values() + (0, 0)
+    rc = tick_lib.ft_host_dense(
+        tkernel.FAMILY_IDS[tprog.kernel_family], ptr(items), ptr(quantile),
+        *pin, *pout, t, g, q, seed, t_off, trng.wrap_i32(g_off), sc[0],
+        sc[1])
+    assert rc == 0
+    assert_bits_equal(outs, want, tprog.family)
+
+
+# ---------------------------------------------------------------- the card
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: "
+                    "python -m pytest -q -m cuda tests/test_torch_kernels.py)")
+
+
+CARD_BLOCKS = [(32, None), (256, 128), (1024, 77)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", CARD_BLOCKS, ids=str)
+@pytest.mark.parametrize("prog", PROGS, ids=IDS)
+def test_card_kernel_matches_plain_version(prog, block):
+    """The CUDA kernel vs the plain version on the card: ragged lanes,
+    Q = 3, ticks across the wrap, NaN ticks; (block_g, block_t) with None
+    meaning one launch over all T."""
+    _need_card()
+    g, q, t = 1001, 3, 300
+    items, quantile, planes = make_case(prog, g, q, t, seed=10)
+    dev = torch.device("cuda")
+    x = torch.from_numpy(items).to(dev)
+    ps = tuple(torch.from_numpy(p).to(dev) for p in planes)
+    qv = torch.from_numpy(quantile).to(dev)
+    kw = dict(t_offset=2 ** 31 - 100, g_offset=12345, lanes_per_group=q,
+              program=prog)
+    block_g, block_t = block
+    before = tkernel.launch_count
+    if block_t is None:
+        got = tops.frugal_update_auto(x, ps, qv, seed=5, block_g=block_g,
+                                      **kw)
+        launches = 1
+    else:
+        got = tops.frugal_update_blocked(x, ps, qv, 5, block_g=block_g,
+                                         block_t=block_t, **kw)
+        launches = -(-t // block_t)
+    torch.cuda.synchronize()
+    assert tkernel.launch_count - before == launches
+    layout = prog.layout
+    want = tkernel.frugal_program_dense_reference(
+        prog, x, tuple(w.contiguous() for w in layout.pack_planes(ps)), qv,
+        5, t_offset=kw["t_offset"], g_offset=kw["g_offset"],
+        lanes_per_group=q)
+    assert_bits_equal(layout.pack_planes(got), want, prog.family)
+
+
+@pytest.mark.cuda
+def test_card_kernel_matches_golden_file(golden_file):
+    _need_card()
+    g, q, t, t_off, g_off, seed = (int(v) for v in golden_file["meta"])
+    dev = torch.device("cuda")
+    for prog in tprogram.test_instances():
+        n = prog.layout.num_words
+        words = tuple(torch.from_numpy(golden_file[f"{prog.family}/in{i}"])
+                      .to(dev) for i in range(n))
+        out = tkernel.frugal_program_dense(
+            prog, torch.from_numpy(golden_file["items"]).to(dev), words,
+            torch.from_numpy(golden_file["quantile"]).to(dev), seed,
+            t_offset=t_off, g_offset=g_off, lanes_per_group=q)
+        assert_bits_equal(out, [golden_file[f"{prog.family}/out{i}"]
+                                for i in range(n)], prog.family)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prog", PROGS, ids=IDS)
+def test_card_fleet_matches_cpu_fleet(prog):
+    """The whole slice on the card (kernel launches) vs on the CPU (the
+    plain version), fed the same numpy and CUDA-tensor chunks."""
+    _need_card()
+    from repro_torch.api import FleetSpec, QuantileFleet
+
+    g, t = 5, 400
+    spec = FleetSpec(num_groups=g, quantiles=(0.5, 0.9), chunk_t=64,
+                     program=prog)
+    items = np.random.default_rng(4).integers(0, 800, (t, g)).astype(
+        np.float32)
+    cut = t // 3
+    cpu = QuantileFleet.create(spec, seed=9, device="cpu").ingest(
+        items[:cut]).ingest_stream([items[cut:cut + 51], items[cut + 51:]])
+    before = tkernel.launch_count
+    card = QuantileFleet.create(spec, seed=9, device="cuda")
+    card = card.ingest(items[:cut]).ingest_stream(
+        [torch.from_numpy(items[cut:cut + 51]).cuda(),
+         torch.from_numpy(items[cut + 51:]).cuda()])
+    assert tkernel.launch_count > before
+    np.testing.assert_array_equal(bits(cpu.estimate()),
+                                  bits(card.estimate()))
+    for f in prog.layout.plane_fields:
+        np.testing.assert_array_equal(
+            bits(getattr(cpu.state, f).numpy()),
+            bits(getattr(card.state, f).cpu().numpy()), err_msg=f)
