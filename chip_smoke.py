@@ -6,29 +6,47 @@
 Run from the root of a checkout. It needs one CUDA device and the CUDA
 toolkit (``nvcc``, ``cuobjdump``), imports nothing of JAX, and exits
 non-zero, printing no result, if any phase fails. Phases, one result line
-each:
+each or more:
 
   1. device and build: the card's name and power limit, a clean build of
-     the dense kernel, registers and spills per instantiation, and the
-     SASS instructions in each instantiation's tick loop;
-  2. kernel vs plain version: all six lane programs at 21,845 groups x 3
-     quantiles, T = 1024 ticks across the int32 wrap with NaN ticks, block
-     sizes 32 / 256 / 1024 and the 128-row launches, each bit-identical to
-     the plain PyTorch version run on the card;
-  3. golden: the kernel on the committed inputs of
-     tests/data/torch_port_golden.npz equals the JAX package's outputs;
-  4. the main path at full width: FleetSpec(2^22 groups, q50/q90/q99, 2u,
-     chunk_t 512), QuantileFleet.create on the card, ingest_stream of 8
-     chunks of [512, 2^22] lognormal items made on the card, estimate()
-     after chunks 1, 4 and 8; the kernel's launch count over that run;
-     the first and last 4096 groups' lanes equal to the plain version;
-  5. the kernel's time on one full-width chunk against its bound and the
-     plain version's time, as the {"kernels": [...]} line.
+     both kernels (one nvcc per source, started together), registers and
+     spills per instantiation of each, and the SASS instructions in each
+     dense instantiation's tick loop;
+  2. dense kernel vs plain version: all six lane programs at 21,845 groups
+     x 3 quantiles, T = 1024 ticks across the int32 wrap with NaN ticks,
+     block sizes 32 / 256 / 1024 and the 128-row launches, each
+     bit-identical to the plain PyTorch version run on the card;
+  3. scatter kernel vs plain version: all six programs at 65,535 lanes, 16
+     rounds of K = 4096 event slots (NaN events, mask-0 slots, pads on one
+     lane with no event, clocks across the int32 wrap), in place,
+     bit-identical to the plain version run on the card;
+  4. golden: both kernels on the committed inputs of
+     tests/data/torch_port_golden.npz equal the JAX package's outputs;
+  5. the dense main path at full width: FleetSpec(2^22 groups,
+     q50/q90/q99, 2u, chunk_t 512), QuantileFleet.create on the card,
+     ingest_stream of 8 chunks of [512, 2^22] lognormal items made on the
+     card, estimate() after chunks 1, 4 and 8; the dense kernel's launch
+     count over that run; the first and last 4096 groups' lanes equal to
+     the plain version;
+  6. the sparse main path at full width: per-lane-clock QuantileFleets of
+     2^16 and 2^22 lanes in turns, twice (q90, 2u), each fed 72 rounds of
+     K = 4096 distinct
+     Zipf(1.2) lanes with lognormal items made on the card, and an
+     SLOFleet of 10^6 routes x 3 metrics on the card fed 9 flushes of
+     4096 Zipf(1.2)-routed observations; the scatter kernel's launch count
+     (equal to the rounds), per-round ms, SLO events/s, peak memory; every
+     plane and clock equal to the plain version run on the same events
+     (the SLO fleet's: a second SLOFleet on the CPU);
+  7. the kernels' times against their bounds and the plain versions'
+     times: B1 (one launch over a [512, 2^22] chunk), B2 (the same chunk as
+     128-row launches) and B3 (one round of K = 4096 at L = 2^22), as the
+     {"kernels": [...]} line.
 
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import importlib.util
 import itertools
 import json
 import re
@@ -40,8 +58,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.npz"
+GOLDEN_MAKER = ROOT / "tests" / "make_torch_port_golden.py"
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/frugal_update.cu"
+SCATTER_SOURCE = "src/repro_torch/kernels/csrc/frugal_scatter.cu"
 TPU_KERNEL = "src/repro/kernels/frugal_update.py:393"
+TPU_KERNEL_B2 = "src/repro/kernels/frugal_update.py:341"
+TPU_KERNEL_B3 = "src/repro/kernels/frugal_update.py:271"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 
 # The operations Frugal-2U needs per lane-tick, counted on its expression
@@ -76,6 +98,8 @@ OPS_2U_LANE_TICK = {
 # tick, a multiply-add and fmix32.
 OPS_TICK = {"int32 multiply": (1, 64), "int32 add": (1, 64),
             "int32 shift": (3, 64), "int32 bitwise": (3, 64)}
+# A sparse event also advances its lane's clock by its mask.
+OPS_CLOCK = {"int32 add": (1, 64)}
 ISSUE_PER_SM_CLOCK = 128   # 4 schedulers x 32 lanes; = the FP32 FMA rate
 
 
@@ -99,14 +123,15 @@ def nvidia_smi(query: str) -> str:
 
 
 # --------------------------------------------------------------- phase 1
-def ptxas_summary(log: str) -> dict:
-    """{family id: (registers, spill store bytes)} from nvcc -Xptxas -v."""
+def ptxas_summary(log: str, kernel: str) -> dict:
+    """{family id: (registers, spill store bytes)} of ``kernel``'s
+    instantiations, from nvcc -Xptxas -v."""
     out, fam = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*frugal_dense_kernelILi"
+        m = re.search(r"Compiling entry function '\S*(frugal_\w+_kernel)ILi"
                       r"(\d+)E", line)
         if m:
-            fam = int(m.group(1))
+            fam = int(m.group(2)) if m.group(1) == kernel else None
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and fam is not None:
             out.setdefault(fam, [None, None])[1] = int(m.group(1))
@@ -131,9 +156,10 @@ def sass_loop_instructions(so_path: Path) -> dict:
         fail(f"cuobjdump: {out.stderr.strip()}")
     loops, fam = {}, None
     for line in out.stdout.splitlines():
-        m = re.search(r"Function : \S*frugal_dense_kernelILi(\d+)E", line)
+        m = re.search(r"Function : (\S+)", line)
         if m:
-            fam = int(m.group(1))
+            m = re.search(r"frugal_dense_kernelILi(\d+)E", m.group(1))
+            fam = int(m.group(1)) if m else None
             continue
         m = re.search(r"/\*([0-9a-f]{4,})\*/.*\bBRA\b[^;]*?0x([0-9a-f]+)",
                       line)
@@ -150,15 +176,24 @@ def phase_build():
 
     res = build.build_library(force=True)
     names = {v: k for k, v in FAMILY_IDS.items()}
-    regs = ptxas_summary(res.log)
+    regs = ptxas_summary(res.log, "frugal_dense_kernel")
+    scatter_regs = ptxas_summary(res.log, "frugal_scatter_kernel")
     loops = sass_loop_instructions(res.path)
-    if sorted(regs) != sorted(names) or sorted(loops) != sorted(names):
-        fail(f"build: instantiations {sorted(regs)} / loops {sorted(loops)}"
-             f" != families {sorted(names)}\n{res.log}")
-    say("build", seconds=f"{res.seconds:.2f}", library=res.path.name)
+    if sorted(names) != sorted(regs) or sorted(names) != sorted(loops) \
+            or sorted(names) != sorted(scatter_regs):
+        fail(f"build: dense {sorted(regs)} / loops {sorted(loops)} / "
+             f"scatter {sorted(scatter_regs)} != families {sorted(names)}"
+             f"\n{res.log}")
+    say("build", seconds=f"{res.seconds:.2f}", library=res.path.name,
+        sources="+".join(build.KERNEL_SOURCES), note="one nvcc per source")
     for fid in sorted(names):
-        say("build", family=names[fid], registers=regs[fid][0],
-            spill_store_bytes=regs[fid][1], sass_loop_instructions=loops[fid])
+        say("build", kernel="dense", family=names[fid],
+            registers=regs[fid][0], spill_store_bytes=regs[fid][1],
+            sass_loop_instructions=loops[fid])
+    for fid in sorted(names):
+        say("build", kernel="scatter", family=names[fid],
+            registers=scatter_regs[fid][0],
+            spill_store_bytes=scatter_regs[fid][1])
     build.load_library()
     return {names[k]: v for k, v in loops.items()}
 
@@ -225,7 +260,59 @@ def phase_families(torch):
 
 
 # --------------------------------------------------------------- phase 3
-def phase_golden(torch):
+SCATTER_LANES, SCATTER_K, SCATTER_ROUNDS = 65535, 4096, 16
+SCATTER_G_OFFSET = 2 ** 31 - 30000   # absolute lane ids wrap
+
+
+def golden_module():
+    """tests/make_torch_port_golden.py (numpy only at import): the sparse
+    case generator and the golden file's sparse keys."""
+    spec = importlib.util.spec_from_file_location("make_torch_port_golden",
+                                                  GOLDEN_MAKER)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def same_bits(torch, got, want) -> bool:
+    return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, want))
+
+
+def phase_scatter(torch, gm):
+    from repro_torch.core import program as program_mod
+    from repro_torch.kernels import frugal_update as fk
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    for i, prog in enumerate(program_mod.test_instances()):
+        planes, ticks, quantile, rounds = gm.sparse_case(
+            prog, SCATTER_LANES, SCATTER_K, SCATTER_ROUNDS, 20 + i)
+        kp = tuple(torch.from_numpy(p).to(dev) for p in planes)
+        kt = torch.from_numpy(ticks).to(dev)
+        rp, rt = tuple(p.clone() for p in kp), kt.clone()
+        q = torch.from_numpy(quantile).to(dev)
+        ptrs = [p.data_ptr() for p in kp] + [kt.data_ptr()]
+        for lanes, items, mask in rounds:
+            ev = [torch.from_numpy(x).to(dev) for x in (lanes, items, mask)]
+            kp, kt = ops.frugal_update_sparse(
+                *ev, kp, kt, q, 555, program=prog,
+                g_offset=SCATTER_G_OFFSET, donate=True)
+            rp, rt = fk.frugal_program_scatter_reference(
+                prog, *ev, rp, rt, q, 555, g_offset=SCATTER_G_OFFSET)
+        torch.cuda.synchronize()
+        if [p.data_ptr() for p in kp] + [kt.data_ptr()] != ptrs:
+            fail(f"scatter {prog.family}: donate=True moved the state")
+        if not same_bits(torch, kp + (kt,), rp + (rt,)):
+            fail(f"scatter {prog.family}: planes or clocks differ from the "
+                 "plain version")
+        say("scatter", program=prog.family, lanes=SCATTER_LANES,
+            rounds=SCATTER_ROUNDS, slots_per_round=SCATTER_K,
+            mask0_slots_per_round=40, in_place="yes", result="bit-identical")
+
+
+# --------------------------------------------------------------- phase 4
+def phase_golden(torch, gm):
     import numpy as np
     from repro_torch.core import program as program_mod
     from repro_torch.kernels import frugal_update as fk
@@ -249,12 +336,31 @@ def phase_golden(torch):
                                   want.view(np.int32)):
                 fail(f"golden: {prog.family} word {i} differs from the JAX "
                      "package's output")
-    say("golden", programs=len(program_mod.test_instances()),
+    say("golden", kernel="dense", programs=len(program_mod.test_instances()),
         lanes=g * q, ticks=t, result="bit-identical to the JAX package")
+    q_sparse = torch.from_numpy(data["sparse/quantile"]).to(dev)
+    rounds = gm.sparse_rounds(data, lambda x: torch.from_numpy(x).to(dev))
+    for prog in program_mod.test_instances():
+        ps, tk = gm.sparse_start(data, prog,
+                                 lambda x: torch.from_numpy(x).to(dev))
+        for lanes, items, mask in rounds:
+            ps, tk = fk.frugal_program_scatter(
+                prog, lanes, items, mask, ps, tk, q_sparse,
+                gm.COUNTER_SEED, g_offset=gm.SPARSE_G_OFFSET)
+        want = [torch.from_numpy(w).to(dev)
+                for w in gm.sparse_final(data, prog)]
+        if not same_bits(torch, ps + (tk,), want):
+            fail(f"golden: scatter {prog.family} differs from the JAX "
+                 "package's sparse rounds")
+    say("golden", kernel="scatter",
+        programs=len(program_mod.test_instances()),
+        lanes=int(q_sparse.numel()), rounds=len(rounds),
+        result="bit-identical to the JAX package")
 
 
-# --------------------------------------------------------------- phase 4
+# --------------------------------------------------------------- phase 5
 G_FULL, QS, CHUNK_T, N_CHUNKS, EDGE = 2 ** 22, (0.5, 0.9, 0.99), 512, 8, 4096
+B2_ROWS = 128
 
 
 def phase_main_path(torch):
@@ -365,7 +471,185 @@ def phase_main_path(torch):
     return launches
 
 
-# --------------------------------------------------------------- phase 5
+# --------------------------------------------------------------- phase 6
+L_SMALL, L_LARGE, K_ROUND, ZIPF_A = 2 ** 16, 2 ** 22, 4096, 1.2
+ROUNDS_WARM, ROUNDS_TIMED = 8, 64
+SLO_ROUTES, SLO_FLUSHES, SLO_EVENTS, SLO_HOT = 10 ** 6, 8, 4096, 16
+
+
+def zipf_rounds(torch, n_lanes, n, gen):
+    """n rounds of (K_ROUND distinct Zipf(1.2) lane ids, sorted; lognormal
+    items), made on the card: lane i is drawn with weight (i+1)^-1.2,
+    without replacement within a round."""
+    dev = torch.device("cuda")
+    weights = torch.arange(1, n_lanes + 1, dtype=torch.float64,
+                           device=dev).pow_(-ZIPF_A)
+    rounds = []
+    for _ in range(n):
+        lanes = torch.multinomial(weights, K_ROUND, replacement=False,
+                                  generator=gen)
+        items = torch.empty(K_ROUND, device=dev).log_normal_(
+            3.0, 0.5, generator=gen)
+        rounds.append((lanes.sort().values.to(torch.int32), items))
+    return rounds
+
+
+def sparse_fleet_run(torch, n_lanes, gen):
+    """A per-lane-clock fleet of n_lanes (q90, 2u) on the card through
+    ROUNDS_WARM + ROUNDS_TIMED rounds of tick_lanes_sparse(donate=True);
+    its planes and clocks checked against the plain version's replay."""
+    import numpy as np
+    from repro_torch.api import FleetSpec, QuantileFleet
+    from repro_torch.kernels import frugal_update as fk
+
+    dev = torch.device("cuda")
+    spec = FleetSpec(num_groups=n_lanes, quantiles=(0.9,), program="2u")
+    rounds = zipf_rounds(torch, n_lanes, ROUNDS_WARM + ROUNDS_TIMED, gen)
+    fleet = QuantileFleet.create(spec, seed=0, per_lane_clock=True)
+    if fleet.device.type != "cuda":
+        fail(f"the sparse fleet was created on {fleet.device}")
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    fk.scatter_launch_count = 0
+    for i, (lanes, items) in enumerate(rounds):
+        if i == ROUNDS_WARM:
+            torch.cuda.synchronize()
+            a.record()
+            t0 = time.perf_counter()
+        fleet = fleet.tick_lanes_sparse(lanes, items, donate=True)
+    b.record()
+    host_s = time.perf_counter() - t0
+    b.synchronize()
+    launches = fk.scatter_launch_count
+    if launches != len(rounds):
+        fail(f"sparse L={n_lanes}: {launches} scatter launches for "
+             f"{len(rounds)} rounds")
+    prog = spec.program
+    planes = (torch.zeros(n_lanes, device=dev),
+              torch.ones(n_lanes, device=dev),
+              torch.ones(n_lanes, device=dev))
+    ticks = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+    mask = torch.ones(K_ROUND, dtype=torch.int32, device=dev)
+    for lanes, items in rounds:
+        planes, ticks = fk.frugal_program_scatter_reference(
+            prog, lanes, items, mask, planes, ticks, fleet.state.quantile, 0)
+    if not same_bits(torch, fleet.state.planes() + (fleet.cursor.t_offset,),
+                     planes + (ticks,)):
+        fail(f"sparse L={n_lanes}: planes or clocks differ from the plain "
+             "version")
+    est = fleet.estimate()
+    if est.shape != (n_lanes, 1) or not np.isfinite(est).all():
+        fail(f"sparse L={n_lanes}: estimate() shape {est.shape}")
+    events = int(fleet.cursor.t_offset.sum())
+    if events != len(rounds) * K_ROUND:
+        fail(f"sparse L={n_lanes}: clocks hold {events} events")
+    stream_ms = a.elapsed_time(b) / ROUNDS_TIMED
+    say("sparse", lanes=n_lanes, rounds=len(rounds),
+        events_per_round=K_ROUND, kernel_launches=launches,
+        round_ms_stream=f"{stream_ms:.5f}",
+        round_ms_host=f"{host_s * 1e3 / ROUNDS_TIMED:.5f}",
+        events_per_s=f"{K_ROUND / stream_ms * 1e3:.4e}",
+        planes_and_clocks="bit-identical to the plain version (all lanes)")
+    return launches, stream_ms
+
+
+def slo_run(torch):
+    """SLOFleet at 10^6 routes x 3 metrics on the card through observe()
+    and flush(); the same observations into an SLOFleet on the CPU (the
+    plain version); the hottest routes' summaries and all state equal."""
+    import numpy as np
+    from repro_torch.kernels import frugal_update as fk
+    from repro_torch.serve import DEFAULT_METRICS, SLOFleet
+
+    metrics = [m for m, _ in DEFAULT_METRICS]
+    rng = np.random.default_rng(0)
+    names = [f"route-{i}" for i in range(SLO_ROUTES)]
+    flushes = [((rng.zipf(ZIPF_A, SLO_EVENTS) - 1) % SLO_ROUTES,
+                rng.integers(0, len(metrics), SLO_EVENTS),
+                rng.lognormal(3.0, 1.0, SLO_EVENTS))
+               for _ in range(1 + SLO_FLUSHES)]
+    # A flush splits into as many rounds as its busiest lane has events.
+    rounds = sum(int(np.unique(r * len(metrics) + m,
+                               return_counts=True)[1].max())
+                 for r, m, _ in flushes)
+
+    def drive(fleet):
+        seconds = []
+        for r, m, v in flushes:
+            t0 = time.perf_counter()
+            for ri, mi, vi in zip(r.tolist(), m.tolist(), v.tolist()):
+                fleet.observe(names[ri], metrics[mi], vi)
+            fleet.flush()
+            if fleet.device.type == "cuda":
+                torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        return seconds
+
+    card = SLOFleet(seed=0, capacity=64)
+    if card.device.type != "cuda":
+        fail(f"the SLO fleet was created on {card.device}")
+    t0 = time.perf_counter()
+    card.ensure_routes(names)
+    torch.cuda.synchronize()
+    register_s = time.perf_counter() - t0
+    fk.scatter_launch_count = 0
+    seconds = drive(card)
+    launches = fk.scatter_launch_count
+    if launches != rounds:
+        fail(f"SLO path: {launches} scatter launches for {rounds} rounds")
+    plain = SLOFleet(seed=0, capacity=64, device="cpu")
+    plain.ensure_routes(names)
+    drive(plain)
+    counts = np.bincount(np.concatenate([r for r, _, _ in flushes]),
+                         minlength=SLO_ROUTES)
+    hot = [names[i] for i in np.argsort(-counts, kind="stable")[:SLO_HOT]]
+    for route in hot:
+        got, want = card.summary(route), plain.summary(route)
+        if any(np.float32(got[k]).view(np.int32)
+               != np.float32(want[k]).view(np.int32) for k in metrics):
+            fail(f"SLO path: summary of {route} {got} != plain {want}")
+    for name in ("_m", "_step", "_sign", "_ticks"):
+        if not torch.equal(getattr(card, name).cpu(), getattr(plain, name)):
+            fail(f"SLO path: {name} differs from the plain version")
+    timed = seconds[1:]
+    events_per_s = SLO_EVENTS * len(timed) / sum(timed)
+    say("slo", routes=SLO_ROUTES, metrics=len(metrics),
+        lanes=card._cap_routes * len(metrics), flushes=len(flushes),
+        events_per_flush=SLO_EVENTS, rounds=rounds, kernel_launches=launches,
+        register_routes_s=f"{register_s:.3f}")
+    say("slo", events_per_s=f"{events_per_s:.1f}",
+        flush_ms=",".join(f"{x * 1e3:.2f}" for x in timed),
+        median_flush_ms=f"{statistics.median(timed) * 1e3:.3f}",
+        note="host clock: observe() x 4096 + flush() + sync, after one "
+             "warm-up flush")
+    say("slo", hottest_routes=SLO_HOT, summaries="bit-identical to the "
+        "plain version", state="all lanes and clocks bit-identical")
+    return launches
+
+
+def phase_sparse_path(torch):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # Small and large in turns, twice: the spread of the per-round time
+    # shows beside the difference the lane count makes.
+    launches, ms = 0, {L_SMALL: [], L_LARGE: []}
+    for n_lanes in (L_SMALL, L_LARGE, L_SMALL, L_LARGE):
+        n, round_ms = sparse_fleet_run(torch, n_lanes, gen)
+        launches += n
+        ms[n_lanes].append(round_ms)
+    launches += slo_run(torch)
+    peak = torch.cuda.max_memory_allocated()
+    say("sparse", round_ms_ratio_large_over_small=",".join(
+        f"{b / a:.4f}" for a, b in zip(ms[L_SMALL], ms[L_LARGE])),
+        max_memory_allocated_bytes=peak, kernel_launches=launches)
+    return launches
+
+
+# --------------------------------------------------------------- phase 7
 def event_ms(torch, fn, reps):
     times = []
     for _ in range(reps):
@@ -379,24 +663,48 @@ def event_ms(torch, fn, reps):
     return times
 
 
-def operation_bound_ms(lane_ticks, ticks, sm_clocks_per_s):
-    """(ms, what binds, operations per lane-tick): the least time the card
-    needs for 2u's operations on ``lane_ticks`` lane-ticks over ``ticks``
-    ticks. Each class takes its operations over its own rate; every
-    operation also takes one of the SM's issue slots."""
+def operation_bound_ms(work, sm_clocks_per_s):
+    """(ms, what binds): the least time the card needs for ``work``, pairs
+    of (operation table, times it runs). Each class takes its operations
+    over its own rate; every operation also takes one of the SM's issue
+    slots."""
     counts = {}
-    for table, n in ((OPS_2U_LANE_TICK, lane_ticks), (OPS_TICK, ticks)):
+    for table, n in work:
         for cls, (ops, rate) in table.items():
             counts[cls] = (counts.get(cls, (0, rate))[0] + ops * n, rate)
     clocks = {cls: ops / rate for cls, (ops, rate) in counts.items() if rate}
     clocks["issue"] = sum(ops for ops, _ in counts.values()) \
         / ISSUE_PER_SM_CLOCK
     binding = max(clocks, key=clocks.get)
-    per_lane_tick = sum(ops for ops, _ in OPS_2U_LANE_TICK.values())
-    return clocks[binding] / sm_clocks_per_s * 1e3, binding, per_lane_tick
+    return clocks[binding] / sm_clocks_per_s * 1e3, binding
+
+
+def card_sm_clocks_per_s(torch):
+    """(SM clocks per second over the whole card, max SM clock in Hz)."""
+    props = torch.cuda.get_device_properties(0)
+    clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    return props.multi_processor_count * clock_hz, clock_hz
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
+                 bytes_ms, ops_ms):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None}
+
+
+def max_abs_err(planes_a, planes_b) -> float:
+    return max(float((a - b).abs().max()) for a, b in zip(planes_a,
+                                                          planes_b))
 
 
 def phase_timing(torch, loops, launches):
+    """B1 (one launch over a [512, 2^22] chunk) and B2 (the same chunk as
+    128-row launches, the tick offset advanced): the same function, so
+    one bound."""
     from repro_torch.core import program as program_mod
     from repro_torch.kernels import frugal_update as fk
 
@@ -421,53 +729,148 @@ def phase_timing(torch, loops, launches):
         res["kernel"] = fk.frugal_program_dense(prog, items, words, quantile,
                                                 0, lanes_per_group=q)
 
+    def blocked(run):
+        w = words
+        for r0 in range(0, CHUNK_T, B2_ROWS):
+            w = run(prog, items[r0:r0 + B2_ROWS], w, quantile, 0,
+                    t_offset=r0, lanes_per_group=q)
+        return w
+
+    def kernel_b2():
+        res["kernel_b2"] = blocked(fk.frugal_program_dense)
+
     def plain():
         res["plain"] = fk.frugal_program_dense_reference(
             prog, items, words, quantile, 0, lanes_per_group=q)
 
+    def plain_b2():
+        res["plain_b2"] = blocked(fk.frugal_program_dense_reference)
+
     kernel_ms = event_ms(torch, kernel, 8)[1:]          # one warm-up
+    b2_ms = event_ms(torch, kernel_b2, 8)[1:]
     plain_ms = event_ms(torch, plain, 1)
-    got, want = res["kernel"], res["plain"]
-    err = 0.0
-    for a, b in zip(prog.layout.unpack_words(got),
-                    prog.layout.unpack_words(want)):
-        err = max(err, float((a - b).abs().max()))
-    same = all(torch.equal(a, b) for a, b in zip(got, want))
-    if not same:
-        fail(f"full-width chunk: kernel differs from the plain version "
-             f"(max abs err {err})")
+    plain_b2_ms = event_ms(torch, plain_b2, 1)
+    errs = {}
+    for got, want in (("kernel", "plain"), ("kernel_b2", "plain_b2")):
+        errs[got] = max_abs_err(prog.layout.unpack_words(res[got]),
+                                prog.layout.unpack_words(res[want]))
+        if not all(torch.equal(a, b) for a, b in zip(res[got], res[want])):
+            fail(f"full-width chunk: {got} differs from the plain version "
+                 f"(max abs err {errs[got]})")
+    if not all(torch.equal(a, b) for a, b in zip(res["kernel"],
+                                                 res["kernel_b2"])):
+        fail("full-width chunk: 128-row launches differ from one launch")
 
     nbytes = (items.numel() + quantile.numel()) * 4 \
         + 2 * sum(w.numel() * w.element_size() for w in words)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    props = torch.cuda.get_device_properties(0)
-    clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
-    sm_clocks_per_s = props.multi_processor_count * clock_hz
+    sm_clocks_per_s, clock_hz = card_sm_clocks_per_s(torch)
     lane_ticks = CHUNK_T * lanes
-    ops_ms, ops_binding, ops_per_lane_tick = operation_bound_ms(
-        lane_ticks, CHUNK_T, sm_clocks_per_s)
+    ops_ms, ops_binding = operation_bound_ms(
+        ((OPS_2U_LANE_TICK, lane_ticks), (OPS_TICK, CHUNK_T)),
+        sm_clocks_per_s)
     sass_ms = (loops["2u"] * lane_ticks
                / (sm_clocks_per_s * ISSUE_PER_SM_CLOCK) * 1e3)
-    ms = statistics.median(kernel_ms)
-    say("timing", kernel_ms=",".join(f"{v:.4f}" for v in kernel_ms),
+    ms, ms_b2 = statistics.median(kernel_ms), statistics.median(b2_ms)
+    bound = max(bytes_ms, ops_ms)
+    say("timing", kernel="B1", kernel_ms=",".join(f"{v:.4f}"
+                                                  for v in kernel_ms),
         plain_ms=f"{plain_ms[0]:.2f}",
         make_chunk_ms=",".join(f"{v:.4f}" for v in gen_ms))
+    say("timing", kernel="B2", rows_per_launch=B2_ROWS,
+        launches=CHUNK_T // B2_ROWS,
+        kernel_ms=",".join(f"{v:.4f}" for v in b2_ms),
+        plain_ms=f"{plain_b2_ms[0]:.2f}",
+        bound_share=f"{bound / ms_b2:.4f}")
     say("timing", bytes=nbytes, bytes_ms=f"{bytes_ms:.4f}",
-        operations_per_lane_tick=ops_per_lane_tick,
+        operations_per_lane_tick=sum(
+            ops for ops, _ in OPS_2U_LANE_TICK.values()),
         operations_ms=f"{ops_ms:.4f}", operations_bound_by=ops_binding,
-        lane_ticks=lane_ticks, sms=props.multi_processor_count,
+        lane_ticks=lane_ticks, sms=round(sm_clocks_per_s / clock_hz),
         max_sm_clock_hz=f"{clock_hz:.4e}",
         lane_ticks_per_s=f"{lane_ticks / ms * 1e3:.4e}",
-        bound_share=f"{max(bytes_ms, ops_ms) / ms:.4f}")
+        bound_share=f"{bound / ms:.4f}")
     say("timing", sass_loop_instructions=loops["2u"],
         sass_issue_ms=f"{sass_ms:.4f}",
         note="diagnostic: this build's loop, not the function's need")
-    return {"name": "frugal_program_dense", "route": "cuda",
-            "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms[0], "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None}
+    return [kernel_entry("frugal_program_dense", KERNEL_SOURCE, TPU_KERNEL,
+                         launches, errs["kernel"], ms, plain_ms[0],
+                         bytes_ms, ops_ms),
+            # B2 is the same wrapper launched per B2_ROWS rows: its count
+            # is the wrapper's, whose path launches run 512 rows each.
+            kernel_entry(f"frugal_program_dense[{B2_ROWS}-row launches]",
+                         KERNEL_SOURCE, TPU_KERNEL_B2, launches,
+                         errs["kernel_b2"], ms_b2, plain_b2_ms[0], bytes_ms,
+                         ops_ms)]
+
+
+def phase_scatter_timing(torch, launches):
+    """B3: one round of K_ROUND Zipf(1.2) events against L_LARGE lanes
+    (2u, q90). The kernel's device time per launch is taken with the
+    stream held behind a sleep, so the launches queue up and run back to
+    back; the wrapper's host time per call is printed beside it."""
+    from repro_torch.core import program as program_mod
+    from repro_torch.kernels import frugal_update as fk
+
+    dev = torch.device("cuda")
+    prog = program_mod.make_program("2u")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    lanes, items = zipf_rounds(torch, L_LARGE, 1, gen)[0]
+    mask = torch.ones(K_ROUND, dtype=torch.int32, device=dev)
+    q = torch.full((L_LARGE,), 0.9, device=dev)
+    fresh = (torch.zeros(L_LARGE, device=dev), torch.ones(L_LARGE, device=dev),
+             torch.ones(L_LARGE, device=dev),
+             torch.zeros(L_LARGE, dtype=torch.int32, device=dev))
+    kp = tuple(x.clone() for x in fresh)
+    rp = tuple(x.clone() for x in fresh)
+    fk.frugal_program_scatter(prog, lanes, items, mask, kp[:3], kp[3], q, 0)
+    fk.frugal_program_scatter_reference(prog, lanes, items, mask, rp[:3],
+                                        rp[3], q, 0)
+    torch.cuda.synchronize()
+    if not same_bits(torch, kp, rp):
+        fail("scatter timing: the kernel's round differs from the plain "
+             "version")
+    err = max_abs_err(kp[:3], rp[:3])
+
+    sm_clocks_per_s, clock_hz = card_sm_clocks_per_s(torch)
+    n, device_ms, host_us = 200, [], []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(0.03 * clock_hz))    # ~30 ms of queue
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fk.frugal_program_scatter(prog, lanes, items, mask, kp[:3],
+                                      kp[3], q, 0)
+        host_us.append((time.perf_counter() - t0) / n * 1e6)
+        b.record()
+        b.synchronize()
+        device_ms.append(a.elapsed_time(b) / n)
+    plain_ms = event_ms(torch, lambda: fk.frugal_program_scatter_reference(
+        prog, lanes, items, mask, rp[:3], rp[3], q, 0), 6)[1:]
+
+    per_event = (lanes.element_size() + items.element_size()
+                 + mask.element_size() + q.element_size()
+                 + 2 * sum(x.element_size() for x in kp))
+    nbytes = K_ROUND * per_event
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms, ops_binding = operation_bound_ms(
+        ((OPS_2U_LANE_TICK, K_ROUND), (OPS_TICK, K_ROUND),
+         (OPS_CLOCK, K_ROUND)), sm_clocks_per_s)
+    ms = statistics.median(device_ms)
+    say("timing", kernel="B3", lanes=L_LARGE, events=K_ROUND,
+        device_ms_per_launch=",".join(f"{v:.5f}" for v in device_ms),
+        host_us_per_call=",".join(f"{v:.2f}" for v in host_us),
+        plain_ms=",".join(f"{v:.4f}" for v in plain_ms))
+    say("timing", kernel="B3", bytes=nbytes, bytes_per_event=per_event,
+        bytes_ms=f"{bytes_ms:.4e}", operations_ms=f"{ops_ms:.4e}",
+        operations_bound_by=ops_binding,
+        bound_share=f"{max(bytes_ms, ops_ms) / ms:.4e}")
+    return kernel_entry("frugal_program_scatter", SCATTER_SOURCE,
+                        TPU_KERNEL_B3, launches, err, ms,
+                        statistics.median(plain_ms), bytes_ms, ops_ms)
 
 
 def main() -> None:
@@ -476,7 +879,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
              "CUDA card")
-    if not (ROOT / "src" / "repro_torch").is_dir() or not GOLDEN.is_file():
+    if not (ROOT / "src" / "repro_torch").is_dir() or not GOLDEN.is_file() \
+            or not GOLDEN_MAKER.is_file():
         fail(f"{ROOT} is not a checkout of the repository (src/repro_torch "
              "and tests/data are missing)")
     sys.path.insert(0, str(ROOT / "src"))
@@ -484,17 +888,22 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
     say("device", name=kind, count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda)
+    gm = golden_module()
     loops = phase_build()
     phase_families(torch)
-    phase_golden(torch)
+    phase_scatter(torch, gm)
+    phase_golden(torch, gm)
     launches = phase_main_path(torch)
-    entry = phase_timing(torch, loops, launches)
+    sparse_launches = phase_sparse_path(torch)
+    entries = phase_timing(torch, loops, launches)
+    entries.append(phase_scatter_timing(torch, sparse_launches))
     torch.cuda.synchronize()
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("JAX or the JAX package was imported")
-    print("kernels: frugal_program_dense[1u,2u,2u-decay,1u-window,2u-window]")
+    print("kernels: frugal_program_dense[1u,2u,2u-decay,1u-window,2u-window]"
+          ", frugal_program_scatter[same five]")
     print(card)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,12 @@
 """repro_torch — the frugal streaming quantile system on PyTorch and CUDA.
 
 A port of the JAX package ``repro`` that keeps its module layout and public
-names. The dense per-group ingest path runs on an NVIDIA Hopper card through
-one hand-written CUDA kernel (``kernels/csrc/frugal_update.cu``); every
-module keeps a plain PyTorch version of the same arithmetic, which the CPU
-tests hold bit-for-bit against the JAX package.
+names. The dense per-group ingest path and the sparse event path (per-lane
+clocks, ``serve.SLOFleet``) run on an NVIDIA Hopper card through two
+hand-written CUDA kernels (``kernels/csrc/frugal_update.cu``,
+``kernels/csrc/frugal_scatter.cu``); every module keeps a plain PyTorch
+version of the same arithmetic, which the CPU tests hold bit-for-bit
+against the JAX package.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (``configs.platform.resolve_device``).

@@ -7,6 +7,7 @@ import dataclasses
 from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core import rng as crng
 from repro_torch.core.drift import DriftConfig
@@ -17,32 +18,61 @@ class StreamCursor(NamedTuple):
     """Absolute position of a fleet in its uniform stream.
 
     seed     — counter-RNG seed (int32).
-    t_offset — absolute stream tick of the next item (int32-wrapped).
+    t_offset — absolute stream tick of the next item (int32-wrapped): a
+               Python int, or for an event-stream fleet a per-lane [L]
+               int32 tensor on the fleet's device.
     g_offset — absolute lane id of this fleet's lane 0.
 
-    Fields are Python ints; ``create`` and ``advance`` wrap them like the
-    kernel's int32 tick counter, so advancing past 2^31 ticks stays
-    bit-consistent with unbounded ingestion.
+    ``create``, ``advance`` and ``advance_lanes`` wrap like the kernel's
+    int32 tick counter (two's complement), so advancing past 2^31 ticks
+    stays bit-consistent with unbounded ingestion.
     """
 
     seed: int
-    t_offset: int
+    t_offset: Union[int, torch.Tensor]
     g_offset: int
 
     @staticmethod
     def create(seed=0, t_offset=0, g_offset=0, key=None) -> "StreamCursor":
         """A cursor from an int seed or uint32 key words (``key``). Fields
-        may be ints or 0-d integer tensors."""
+        may be ints or 0-d integer tensors; a 1-d ``t_offset`` (tensor or
+        numpy) becomes the per-lane int32 clock, kept on its device."""
         if key is not None:
             seed = crng.seed_from_key(key)
-        return StreamCursor(seed=crng.wrap_i32(int(seed)),
-                            t_offset=crng.wrap_i32(int(t_offset)),
+        if isinstance(t_offset, np.ndarray):
+            t_offset = torch.from_numpy(t_offset.astype(np.int32))
+        if isinstance(t_offset, torch.Tensor) and t_offset.dim() > 0:
+            if t_offset.dim() != 1 or t_offset.dtype.is_floating_point:
+                raise ValueError(f"a per-lane t_offset must be [L] int32, "
+                                 f"got {tuple(t_offset.shape)} "
+                                 f"{t_offset.dtype}")
+            t_offset = t_offset.to(torch.int32).contiguous()
+        else:
+            t_offset = crng.wrap_i32(int(t_offset))
+        return StreamCursor(seed=crng.wrap_i32(int(seed)), t_offset=t_offset,
                             g_offset=crng.wrap_i32(int(g_offset)))
 
+    @property
+    def per_lane(self) -> bool:
+        """True when t_offset is a per-lane tick vector (event streams)."""
+        return isinstance(self.t_offset, torch.Tensor)
+
     def advance(self, ticks: int) -> "StreamCursor":
-        """Cursor after ``ticks`` more stream items."""
+        """Cursor after ``ticks`` more stream items (every lane's clock)."""
+        if self.per_lane:
+            return self._replace(
+                t_offset=self.t_offset + crng.wrap_i32(int(ticks)))
         return self._replace(
             t_offset=crng.wrap_i32(self.t_offset + int(ticks)))
+
+    def advance_lanes(self, mask) -> "StreamCursor":
+        """Cursor after one event round: lanes with mask 1 consumed a
+        uniform, lanes with mask 0 did not (per-lane clock). Returns a new
+        clock tensor; the old one is untouched."""
+        if not self.per_lane:
+            raise ValueError("advance_lanes needs a per-lane cursor")
+        mask = torch.as_tensor(mask, device=self.t_offset.device)
+        return self._replace(t_offset=self.t_offset + mask.to(torch.int32))
 
 
 @dataclasses.dataclass(frozen=True)

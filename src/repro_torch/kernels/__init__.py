@@ -1,15 +1,20 @@
 """The port's kernels.
 
-  frugal_update.py — the dense program kernel's wrapper (CUDA C++ in
-                     csrc/, built by build.py) and its plain PyTorch
-                     version.
-  ops.py           — the dense entry points: frugal_update_auto (one
-                     launch) and frugal_update_blocked (block_t-row
-                     launches).
+  frugal_update.py — the kernels' wrappers (CUDA C++ in csrc/, built by
+                     build.py) and their plain PyTorch versions: the dense
+                     program kernel and the sparse scatter kernel.
+  ops.py           — the entry points: frugal_update_auto (one dense
+                     launch), frugal_update_blocked (block_t-row dense
+                     launches) and frugal_update_sparse (one event round).
 """
 from .frugal_update import (frugal_program_dense,
-                            frugal_program_dense_reference)
-from .ops import frugal_update_auto, frugal_update_blocked
+                            frugal_program_dense_reference,
+                            frugal_program_scatter,
+                            frugal_program_scatter_reference)
+from .ops import (frugal_update_auto, frugal_update_blocked,
+                  frugal_update_sparse)
 
 __all__ = ["frugal_program_dense", "frugal_program_dense_reference",
-           "frugal_update_auto", "frugal_update_blocked"]
+           "frugal_program_scatter", "frugal_program_scatter_reference",
+           "frugal_update_auto", "frugal_update_blocked",
+           "frugal_update_sparse"]

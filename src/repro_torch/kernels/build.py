@@ -1,11 +1,13 @@
 """Build and load the CUDA kernel library at first use.
 
-``nvcc`` compiles ``csrc/frugal_update.cu`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds). The library lands in ``build/repro_torch/``
-at the repository root, named by a hash of the sources and flags, so an
-edited source is never served by a stale build. A failed build raises with
-the compiler's output.
+``nvcc`` compiles each kernel source of ``csrc/`` (``frugal_update.cu``,
+the dense kernel; ``frugal_scatter.cu``, the sparse event kernel) for
+``sm_90a``, one compiler process per source, all started together, and
+links the objects into one shared library with a plain C interface,
+loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds). The
+library lands in ``build/repro_torch/`` at the repository root, named by a
+hash of the sources and flags, so an edited source is never served by a
+stale build. A failed build raises with the compiler's output.
 """
 from __future__ import annotations
 
@@ -20,15 +22,15 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("frugal_update.cu", "frugal_tick.cuh")
+KERNEL_SOURCES = ("frugal_update.cu", "frugal_scatter.cu")
+SOURCES = KERNEL_SOURCES + ("frugal_tick.cuh",)
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
 # -fmad=false: no contraction of a*b+c into an FMA anywhere (hazard 3 of
 # frugal_tick.cuh); -Xptxas -v: registers and spills per instantiation,
 # kept in the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,16 +71,30 @@ def build_library(force: bool = False) -> BuildResult:
         log = log_path.read_text() if log_path.exists() else ""
         return BuildResult(out, log, 0.0)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC / "frugal_update.cu")]
+    nvcc = find_nvcc()
+    objs = [tmp.with_name(f"{tmp.name}.{Path(src).stem}.o")
+            for src in KERNEL_SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    compiles = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True))
+                for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                             str(CSRC / src)]
+                            for src, obj in zip(KERNEL_SOURCES, objs))]
+    steps = [(cmd, proc.communicate()[0], proc.returncode)
+             for cmd, proc in compiles]
+    if all(rc == 0 for _, _, rc in steps):
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        steps.append((cmd, proc.stdout + proc.stderr, proc.returncode))
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = "".join(text for _, text, _ in steps)
+    for cmd, text, rc in steps:
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
+                               f"{text}")
     os.replace(tmp, out)
     log_path.write_text(log)
     return BuildResult(out, log, seconds)
@@ -97,6 +113,12 @@ def load_library() -> ctypes.CDLL:
         fn = lib.frugal_dense_launch
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
                        + [ctypes.c_int64] * 3 + [ctypes.c_int32] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fn = lib.frugal_scatter_launch
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int32] + [ctypes.c_void_p] * 7
+                       + [ctypes.c_int64] * 2 + [ctypes.c_int32] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _LIB = lib

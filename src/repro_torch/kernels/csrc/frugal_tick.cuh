@@ -1,6 +1,7 @@
 // Per-lane tick arithmetic of the frugal lane programs, shared by the CUDA
-// kernel (frugal_update.cu) and a host build (tick_host_shim.cpp) that the
-// CPU tests hold bit-for-bit against the JAX package.
+// kernels (frugal_update.cu: dense; frugal_scatter.cu: sparse events) and a
+// host build (tick_host_shim.cpp) that the CPU tests hold bit-for-bit
+// against the JAX package.
 //
 // Each function transcribes one expression tree of the JAX package
 // (core/rng.py, core/packing.py, core/frugal.py, core/drift.py), so every
@@ -359,4 +360,114 @@ FT_HD void ft_run_lane(const FtDenseArgs& a, int64_t lane) {
     a.out[2][lane] = ft_as_bits(m2);
     a.out[3][lane] = ft_pack_step_sign(step2, sign2);
   }
+}
+
+// ------------------------------------------------------- one sparse event
+// Operands of one sparse event round: K event slots against L resident
+// lanes whose state rides unpacked float planes (the program's
+// plane_fields order, each [L]) and an [L] int32 per-lane clock, all
+// updated in place. Unused plane slots are null.
+struct FtScatterArgs {
+  const int32_t* lanes;     // [K] event lane ids (masked-in ids distinct)
+  const float* items;       // [K] float32 (NaN where mask is 0)
+  const int32_t* mask;      // [K] 1 advances the lane's clock, 0 is a pad
+  const float* quantile;    // [L] per-lane targets, or [1] for all lanes
+  float* planes[6];         // (m, step, sign, m2, step2, sign2) as present
+  int32_t* ticks;           // [L] per-lane clock
+  int64_t K;
+  int64_t L;
+  int32_t q_per_lane;       // 1: quantile[lane]; 0: quantile[0]
+  int32_t seed;
+  int32_t g_offset;         // absolute lane id of lane 0
+  int32_t s0;               // program scalars, as in FtDenseArgs
+  int32_t s1;
+};
+
+inline FtScatterArgs ft_scatter_args(
+    const int32_t* lanes, const float* items, const int32_t* mask,
+    const float* quantile, int32_t q_per_lane, void* p0, void* p1, void* p2,
+    void* p3, void* p4, void* p5, int32_t* ticks, int64_t K, int64_t L,
+    int32_t seed, int32_t g_offset, int32_t s0, int32_t s1) {
+  FtScatterArgs a;
+  a.lanes = lanes;
+  a.items = items;
+  a.mask = mask;
+  a.quantile = quantile;
+  a.planes[0] = (float*)p0;
+  a.planes[1] = (float*)p1;
+  a.planes[2] = (float*)p2;
+  a.planes[3] = (float*)p3;
+  a.planes[4] = (float*)p4;
+  a.planes[5] = (float*)p5;
+  a.ticks = ticks;
+  a.K = K;
+  a.L = L;
+  a.q_per_lane = q_per_lane;
+  a.seed = seed;
+  a.g_offset = g_offset;
+  a.s0 = s0;
+  a.s1 = s1;
+  return a;
+}
+
+// Event slot `e`: gather its lane's planes and clock, tick once with the
+// uniform keyed on (seed, the lane's own tick, absolute lane id), store the
+// planes back and the clock advanced by the slot's mask. A pad slot (mask
+// 0, NaN item) stores its lane's state unchanged; pads that share a lane
+// with no real event all store the same bytes. A lane id outside [0, L)
+// is skipped: nothing is read or written for it.
+template <int FAM>
+FT_HD void ft_run_event(const FtScatterArgs& a, int64_t e) {
+  const int32_t lane = a.lanes[e];
+  if (lane < 0 || (int64_t)lane >= a.L) return;
+  const float item = a.items[e];
+  const int32_t mk = a.mask[e];
+  const float q = a.quantile[a.q_per_lane ? lane : 0];
+  const int32_t tick = a.ticks[lane];
+  const int32_t lane_id = ft_i32((uint32_t)a.g_offset + (uint32_t)lane);
+  const float u = ft_counter_uniform(a.seed, tick, lane_id);
+  float* const* p = a.planes;
+  switch (FAM) {
+    case FT_1U: {
+      float m = p[0][lane];
+      ft_tick_1u(m, item, u, q);
+      p[0][lane] = m;
+      break;
+    }
+    case FT_2U:
+    case FT_2U_DECAY: {
+      float m = p[0][lane], step = p[1][lane], sign = p[2][lane];
+      if (FAM == FT_2U)
+        ft_tick_2u(m, step, sign, item, u, q);
+      else
+        ft_tick_2u_decay(m, step, sign, item, u, q,
+                         ft_as_float((uint32_t)a.s0),
+                         ft_as_float((uint32_t)a.s1));
+      p[0][lane] = m;
+      p[1][lane] = step;
+      p[2][lane] = sign;
+      break;
+    }
+    case FT_1U_WINDOW: {
+      float m = p[0][lane], m2 = p[1][lane];
+      ft_tick_1u_window(m, m2, item, u, q, tick, a.s0);
+      p[0][lane] = m;
+      p[1][lane] = m2;
+      break;
+    }
+    case FT_2U_WINDOW: {
+      float m = p[0][lane], step = p[1][lane], sign = p[2][lane];
+      float m2 = p[3][lane], step2 = p[4][lane], sign2 = p[5][lane];
+      ft_tick_2u_window(m, step, sign, m2, step2, sign2, item, u, q, tick,
+                        a.s0);
+      p[0][lane] = m;
+      p[1][lane] = step;
+      p[2][lane] = sign;
+      p[3][lane] = m2;
+      p[4][lane] = step2;
+      p[5][lane] = sign2;
+      break;
+    }
+  }
+  a.ticks[lane] = ft_i32((uint32_t)tick + (uint32_t)mk);
 }

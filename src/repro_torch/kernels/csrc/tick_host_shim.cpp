@@ -84,4 +84,29 @@ int ft_host_dense(int family, const float* items, const float* quantile,
   return 0;
 }
 
+// The scatter kernel's whole round (ft_run_event), one event slot after
+// another, in place on the planes and the clock.
+int ft_host_scatter(int family, const int32_t* lanes, const float* items,
+                    const int32_t* mask, const float* quantile,
+                    int32_t q_per_lane, void* p0, void* p1, void* p2,
+                    void* p3, void* p4, void* p5, int32_t* ticks, int64_t K,
+                    int64_t L, int32_t seed, int32_t g_offset, int32_t s0,
+                    int32_t s1) {
+  const FtScatterArgs a = ft_scatter_args(lanes, items, mask, quantile,
+                                          q_per_lane, p0, p1, p2, p3, p4, p5,
+                                          ticks, K, L, seed, g_offset, s0,
+                                          s1);
+  for (int64_t e = 0; e < a.K; ++e) {
+    switch (family) {
+      case FT_1U: ft_run_event<FT_1U>(a, e); break;
+      case FT_2U: ft_run_event<FT_2U>(a, e); break;
+      case FT_2U_DECAY: ft_run_event<FT_2U_DECAY>(a, e); break;
+      case FT_1U_WINDOW: ft_run_event<FT_1U_WINDOW>(a, e); break;
+      case FT_2U_WINDOW: ft_run_event<FT_2U_WINDOW>(a, e); break;
+      default: return 1;
+    }
+  }
+  return 0;
+}
+
 }  // extern "C"

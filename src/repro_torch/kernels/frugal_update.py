@@ -1,4 +1,6 @@
-"""The dense program kernel's wrapper and its plain PyTorch version.
+"""The program kernels' wrappers and their plain PyTorch versions.
+
+Dense ingest:
 
 ``frugal_program_dense`` runs a [T, G] item block through any registered
 lane program with the state in its serialized words (core.program
@@ -9,8 +11,16 @@ package's ``frugal_program_pallas_dma`` (B1), ``frugal_program_pallas``
 (B2, as launches of ``block_t`` rows) and ``frugal_program_pallas_gpu``
 (B4).
 
-``launch_count`` counts kernel launches (and nothing else), so a run can
-show that its main path went through the kernel.
+Sparse event rounds: ``frugal_program_scatter`` gathers K event lanes,
+ticks each once and scatters back in place into unpacked planes and an [L]
+per-lane clock. On CUDA tensors it launches the kernel of
+``csrc/frugal_scatter.cu`` or raises; on CPU tensors it runs
+``frugal_program_scatter_reference``. It replaces the JAX package's
+``frugal_program_scatter_pallas`` (B3).
+
+``launch_count`` counts dense kernel launches and ``scatter_launch_count``
+scatter kernel launches (and nothing else), so a run can show that its
+path went through the kernels.
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ FAMILY_IDS = {"1u": 0, "2u": 1, "2u-decay": 2, "1u-window": 3,
               "2u-window": 4}
 
 launch_count = 0
+scatter_launch_count = 0
 
 
 def _scalar_slots(program, scalars):
@@ -124,3 +135,118 @@ def frugal_program_dense(program, items, words, quantile, seed,
         raise RuntimeError(f"frugal_dense_launch failed: cudaError_t {err}")
     launch_count += 1
     return outs
+
+
+# ------------------------------------------------------------ sparse rounds
+def _check_scatter_operands(program, lanes, items, mask, planes, ticks,
+                            quantile):
+    layout = program.layout
+    if lanes.dim() != 1 or lanes.dtype != torch.int32:
+        raise ValueError(f"lanes must be [K] int32, got "
+                         f"{tuple(lanes.shape)} {lanes.dtype}")
+    k = lanes.shape[0]
+    for name, x, dt in (("items", items, torch.float32),
+                        ("mask", mask, torch.int32)):
+        if x.dtype != dt or tuple(x.shape) != (k,):
+            raise ValueError(f"{name} must be [{k}] {dt}, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+    if len(planes) != len(layout.plane_fields):
+        raise ValueError(f"{program.family}: {len(planes)} planes, layout "
+                         f"has {layout.plane_fields}")
+    lanes_l = ticks.shape[0] if ticks.dim() == 1 else -1
+    if ticks.dtype != torch.int32 or lanes_l <= 0:
+        raise ValueError(f"ticks must be [L] int32, got "
+                         f"{tuple(ticks.shape)} {ticks.dtype}")
+    for p in planes:
+        if p.dtype != torch.float32 or tuple(p.shape) != (lanes_l,):
+            raise ValueError(f"plane {tuple(p.shape)} {p.dtype} != "
+                             f"[{lanes_l}] float32")
+    if quantile.dtype != torch.float32 or \
+            quantile.numel() not in (1, lanes_l) or quantile.dim() > 1:
+        raise ValueError(f"quantile must be [{lanes_l}] or one float32, got "
+                         f"{tuple(quantile.shape)} {quantile.dtype}")
+    for x in (items, mask, *planes, ticks, quantile):
+        if x.device != lanes.device:
+            raise ValueError(f"operands on {x.device} and {lanes.device}; "
+                             "move them to one device")
+
+
+def frugal_program_scatter_reference(program, lanes, items, mask, planes,
+                                     ticks, quantile, seed, scalars=None, *,
+                                     g_offset=0):
+    """Plain PyTorch version of the scatter kernel: gather the event lanes'
+    planes, clocks and targets, run ``program.run_tick`` once with each
+    lane's own tick, and ``index_put_`` planes and clocks back in place.
+    Same operands and result as ``frugal_program_scatter``, on any device;
+    a lane id outside [0, L) raises here (the kernel skips it)."""
+    _check_scatter_operands(program, lanes, items, mask, planes, ticks,
+                            quantile)
+    idx = lanes.long()
+    ticks_s = ticks[idx]
+    g_ids = crng.wrap_i32(g_offset) + lanes
+    q = quantile.reshape(-1)
+    q_s = q[idx] if q.numel() > 1 else q.expand(lanes.shape)
+    ctx = frugal.TickCtx(quantile=q_s, t=ticks_s, seed=crng.wrap_i32(seed),
+                         lanes=g_ids, scalars=_scalar_slots(program, scalars))
+    u = crng.counter_uniform(ctx.seed, ticks_s, g_ids)
+    out = program.run_tick(tuple(p[idx] for p in planes), items, u, ctx)
+    for p, o in zip(planes, out):
+        p.index_put_((idx,), o)
+    ticks.index_put_((idx,), ticks_s + mask)
+    return tuple(planes), ticks
+
+
+def frugal_program_scatter(program, lanes, items, mask, planes, ticks,
+                           quantile, seed, scalars=None, *, g_offset=0,
+                           block_k=128):
+    """One sparse event round, in place: event slot e ticks lane
+    ``lanes[e]`` once with item ``items[e]``, the uniform
+    ``counter_uniform(seed, ticks[lane], g_offset + lane)`` and the target
+    ``quantile[lane]`` (or the one scalar), then advances
+    ``ticks[lane]`` by ``mask[e]``. Returns ``(planes, ticks)``: the
+    caller's tensors, updated.
+
+    Masked-in lanes must be distinct; a pad slot (mask 0, NaN item) stores
+    its lane unchanged and may share a lane only with other pads. Nothing
+    is padded here. ``block_k`` is the CUDA block size (a multiple of 32,
+    at most 1024). CPU tensors run the plain version; CUDA tensors launch
+    the kernel or raise.
+    """
+    global scatter_launch_count
+    if lanes.device.type == "cpu":
+        return frugal_program_scatter_reference(
+            program, lanes, items, mask, planes, ticks, quantile, seed,
+            scalars, g_offset=g_offset)
+    if lanes.device.type != "cuda":
+        raise ValueError(f"no scatter kernel for device {lanes.device}")
+    _check_scatter_operands(program, lanes, items, mask, planes, ticks,
+                            quantile)
+    family = program.kernel_family
+    if family not in FAMILY_IDS:
+        raise ValueError(f"no kernel instantiation for program family "
+                         f"{family!r}; kernel families: {tuple(FAMILY_IDS)}")
+    if block_k <= 0 or block_k > 1024 or block_k % 32:
+        raise ValueError(f"block_k must be a multiple of 32 in [32, 1024], "
+                         f"got {block_k}")
+    for x in (lanes, items, mask, *planes, ticks, quantile):
+        if not x.is_contiguous():
+            raise ValueError("the scatter kernel takes contiguous tensors")
+    k = lanes.shape[0]
+    if k == 0:
+        return tuple(planes), ticks
+    slots = _scalar_slots(program, scalars) + (0, 0)
+    ptrs = [p.data_ptr() for p in planes] + [None] * (6 - len(planes))
+    from .build import load_library
+
+    with torch.cuda.device(lanes.device):
+        stream = torch.cuda.current_stream(lanes.device).cuda_stream
+        err = load_library().frugal_scatter_launch(
+            FAMILY_IDS[family], lanes.data_ptr(), items.data_ptr(),
+            mask.data_ptr(), quantile.data_ptr(),
+            int(quantile.numel() > 1), *ptrs, ticks.data_ptr(), k,
+            ticks.shape[0], crng.wrap_i32(seed), crng.wrap_i32(g_offset),
+            slots[0], slots[1], block_k, stream)
+    if err != 0:
+        raise RuntimeError(f"frugal_scatter_launch failed: cudaError_t {err}")
+    scatter_launch_count += 1
+    return tuple(planes), ticks

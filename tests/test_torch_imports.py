@@ -1,13 +1,16 @@
-"""The port stands alone: no module of ``repro_torch`` imports JAX or the
-JAX package ``repro``, at run time or in its sources."""
+"""The port stands alone: no module of ``repro_torch`` (nor
+``chip_smoke.py``, the port's card run) imports JAX or the JAX package
+``repro``, at run time or in its sources."""
 import os
 import re
 import subprocess
 import sys
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "src")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src")
 PKG = os.path.join(SRC, "repro_torch")
+IMPORT = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
+                    r"(\.|\s))", re.MULTILINE)
 
 
 def port_modules():
@@ -24,7 +27,10 @@ def port_modules():
 
 def test_importing_every_module_loads_neither_jax_nor_repro():
     mods = port_modules()
-    assert "repro_torch.kernels.frugal_update" in mods
+    for m in ("repro_torch.kernels.frugal_update", "repro_torch.kernels.ops",
+              "repro_torch.api.fleet", "repro_torch.serve",
+              "repro_torch.serve.slo"):
+        assert m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -40,14 +46,13 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
 
 
 def test_sources_name_no_jax_or_repro_import():
-    pattern = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
-                         r"(\.|\s))", re.MULTILINE)
-    offenders = []
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(PKG):
-        for fn in files:
-            if fn.endswith(".py"):
-                path = os.path.join(dirpath, fn)
-                with open(path, encoding="utf-8") as f:
-                    for m in pattern.finditer(f.read()):
-                        offenders.append(f"{path}: {m.group(0).strip()}")
-    assert not offenders, offenders
+        paths += [os.path.join(dirpath, fn) for fn in files
+                  if fn.endswith(".py")]
+    offenders = []
+    for path in paths:
+        with open(path, encoding="utf-8") as f:
+            for m in IMPORT.finditer(f.read()):
+                offenders.append(f"{path}: {m.group(0).strip()}")
+    assert len(paths) > 20 and not offenders, offenders
