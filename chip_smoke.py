@@ -16,12 +16,19 @@ each or more:
      x 3 quantiles, T = 1024 ticks across the int32 wrap with NaN ticks,
      block sizes 32 / 256 / 1024 and the 128-row launches, each
      bit-identical to the plain PyTorch version run on the card;
-  3. scatter kernel vs plain version: all six programs at 65,535 lanes, 16
-     rounds of K = 4096 event slots (NaN events, mask-0 slots, pads on one
-     lane with no event, clocks across the int32 wrap), in place,
-     bit-identical to the plain version run on the card;
+  3. run kernel vs plain version: all six programs at 65,535 lanes, 16
+     rounds of K = 4096 distinct-lane event slots (NaN events, mask-0
+     slots, pads on one lane with no event, clocks across the int32 wrap),
+     in place; then, per program, two batches of 4096 slots in runs of one
+     lane's events (Zipf(1.2) lanes, longest run at least 256, NaN items
+     and mask-0 slots inside runs, pad-only runs, hot lanes' clocks across
+     the int32 wrap and window-epoch edges), one with a mask and one with
+     mask=None, each in one launch; all bit-identical to the plain version
+     run on the card (which applies runs round by round);
   4. golden: both kernels on the committed inputs of
-     tests/data/torch_port_golden.npz equal the JAX package's outputs;
+     tests/data/torch_port_golden.npz equal the JAX package's outputs
+     (dense words, sparse rounds, and one run batch against the JAX
+     rounds applied in order);
   5. the dense main path at full width: FleetSpec(2^22 groups,
      q50/q90/q99, 2u, chunk_t 512), QuantileFleet.create on the card,
      ingest_stream of 8 chunks of [512, 2^22] lognormal items made on the
@@ -30,16 +37,19 @@ each or more:
      the plain version;
   6. the sparse main path at full width: per-lane-clock QuantileFleets of
      2^16 and 2^22 lanes in turns, twice (q90, 2u), each fed 72 rounds of
-     K = 4096 distinct
-     Zipf(1.2) lanes with lognormal items made on the card, and an
-     SLOFleet of 10^6 routes x 3 metrics on the card fed 9 flushes of
-     4096 Zipf(1.2)-routed observations; the scatter kernel's launch count
-     (equal to the rounds), per-round ms, SLO events/s, peak memory; every
-     plane and clock equal to the plain version run on the same events
-     (the SLO fleet's: a second SLOFleet on the CPU);
+     K = 4096 distinct Zipf(1.2) lanes with lognormal items made on the
+     card, and an SLOFleet of 10^6 routes x 3 metrics on the card fed 9
+     flushes of 4096 Zipf(1.2)-routed observations; the run kernel's
+     launch count (one per round for the fleets, one per flush for the
+     SLOFleet), per-round ms, SLO events/s, peak memory; every plane and
+     clock equal to the plain version run on the same events (the SLO
+     fleet's: a second SLOFleet on the CPU);
   7. the kernels' times against their bounds and the plain versions'
      times: B1 (one launch over a [512, 2^22] chunk), B2 (the same chunk as
-     128-row launches) and B3 (one round of K = 4096 at L = 2^22), as the
+     128-row launches) and B3 twice (one round of K = 4096 at L = 2^22; one
+     SLO-sized flush of 4096 events in runs at L = 3 x 2^20, with its
+     longest run and the serial-chain floor, the longest run times one
+     tick's dependent latency measured on one thread), as the
      {"kernels": [...]} line.
 
 The last line is {"ok": true, "device": {...}}.
@@ -262,11 +272,13 @@ def phase_families(torch):
 # --------------------------------------------------------------- phase 3
 SCATTER_LANES, SCATTER_K, SCATTER_ROUNDS = 65535, 4096, 16
 SCATTER_G_OFFSET = 2 ** 31 - 30000   # absolute lane ids wrap
+RUN_LONGEST_MIN = 256
 
 
 def golden_module():
     """tests/make_torch_port_golden.py (numpy only at import): the sparse
-    case generator and the golden file's sparse keys."""
+    round and run batch generators and the golden file's sparse and run
+    keys."""
     spec = importlib.util.spec_from_file_location("make_torch_port_golden",
                                                   GOLDEN_MAKER)
     mod = importlib.util.module_from_spec(spec)
@@ -309,6 +321,53 @@ def phase_scatter(torch, gm):
         say("scatter", program=prog.family, lanes=SCATTER_LANES,
             rounds=SCATTER_ROUNDS, slots_per_round=SCATTER_K,
             mask0_slots_per_round=40, in_place="yes", result="bit-identical")
+    for i, prog in enumerate(program_mod.test_instances()):
+        for masked in (True, False):
+            run_batch_vs_plain(torch, gm, prog, 40 + i, masked)
+
+
+def run_batch_vs_plain(torch, gm, prog, seed, masked):
+    """One batch of event runs (gm.run_events: Zipf(1.2) lanes, NaN items
+    and mask-0 slots inside runs, pad-only runs, hot lanes' clocks across
+    the int32 wrap and window-epoch edges) in one launch, against the
+    plain version's rounds. With a mask, mask-0 slots carry finite items,
+    which both must force to NaN; without one, mask=None."""
+    import numpy as np
+    from repro_torch.kernels import frugal_update as fk
+
+    dev = torch.device("cuda")
+    planes, ticks, quantile, (lanes, items, mask), _ = gm.run_case(
+        prog, SCATTER_LANES, SCATTER_K, seed)
+    longest = int(gm.run_lengths(lanes).max())
+    if longest < RUN_LONGEST_MIN:
+        fail(f"runs {prog.family}: longest run {longest} < "
+             f"{RUN_LONGEST_MIN}")
+    if masked:
+        items = np.where(mask == 0, np.float32(123.0), items)
+    ev = [torch.from_numpy(x).to(dev) for x in (lanes, items, mask)]
+    if not masked:
+        ev[2] = None
+    kp = tuple(torch.from_numpy(p).to(dev) for p in planes)
+    kt = torch.from_numpy(ticks).to(dev)
+    rp, rt = tuple(p.clone() for p in kp), kt.clone()
+    q = torch.from_numpy(quantile).to(dev)
+    before = fk.scatter_launch_count
+    fk.frugal_program_scatter(prog, *ev, kp, kt, q, 555,
+                              g_offset=SCATTER_G_OFFSET)
+    launches = fk.scatter_launch_count - before
+    fk.frugal_program_scatter_reference(prog, *ev, rp, rt, q, 555,
+                                        g_offset=SCATTER_G_OFFSET)
+    torch.cuda.synchronize()
+    if launches != 1:
+        fail(f"runs {prog.family}: {launches} launches for one batch")
+    if not same_bits(torch, kp + (kt,), rp + (rt,)):
+        fail(f"runs {prog.family} ({'mask' if masked else 'mask=None'}): "
+             "planes or clocks differ from the plain version's rounds")
+    say("runs", program=prog.family, lanes=SCATTER_LANES,
+        slots=len(lanes), runs=len(gm.run_lengths(lanes)),
+        longest_run=longest, mask="given" if masked else "None",
+        launches=launches, result="bit-identical to the plain version's "
+        f"{longest} rounds")
 
 
 # --------------------------------------------------------------- phase 4
@@ -356,6 +415,23 @@ def phase_golden(torch, gm):
         programs=len(program_mod.test_instances()),
         lanes=int(q_sparse.numel()), rounds=len(rounds),
         result="bit-identical to the JAX package")
+    batch = gm.runs_batch(data, lambda x: torch.from_numpy(x).to(dev))
+    for prog in program_mod.test_instances():
+        ps, tk = gm.runs_start(data, prog,
+                               lambda x: torch.from_numpy(x).to(dev))
+        ps, tk = fk.frugal_program_scatter(prog, *batch, ps, tk, q_sparse,
+                                           gm.COUNTER_SEED,
+                                           g_offset=gm.SPARSE_G_OFFSET)
+        want = [torch.from_numpy(w).to(dev)
+                for w in gm.runs_final(data, prog)]
+        if not same_bits(torch, ps + (tk,), want):
+            fail(f"golden: run batch {prog.family} differs from the JAX "
+                 "package's rounds")
+    say("golden", kernel="scatter (one run batch)",
+        programs=len(program_mod.test_instances()),
+        slots=int(batch[0].numel()),
+        longest_run=int(gm.run_lengths(data["runs/lanes"]).max()),
+        result="bit-identical to the JAX package's rounds")
 
 
 # --------------------------------------------------------------- phase 5
@@ -569,7 +645,8 @@ def slo_run(torch):
                 rng.integers(0, len(metrics), SLO_EVENTS),
                 rng.lognormal(3.0, 1.0, SLO_EVENTS))
                for _ in range(1 + SLO_FLUSHES)]
-    # A flush splits into as many rounds as its busiest lane has events.
+    # A per-round path would split a flush into as many rounds as its
+    # busiest lane has events; the run kernel takes the flush in one launch.
     rounds = sum(int(np.unique(r * len(metrics) + m,
                                return_counts=True)[1].max())
                  for r, m, _ in flushes)
@@ -596,8 +673,9 @@ def slo_run(torch):
     fk.scatter_launch_count = 0
     seconds = drive(card)
     launches = fk.scatter_launch_count
-    if launches != rounds:
-        fail(f"SLO path: {launches} scatter launches for {rounds} rounds")
+    if launches != len(flushes):
+        fail(f"SLO path: {launches} scatter launches for {len(flushes)} "
+             "flushes")
     plain = SLOFleet(seed=0, capacity=64, device="cpu")
     plain.ensure_routes(names)
     drive(plain)
@@ -616,8 +694,8 @@ def slo_run(torch):
     events_per_s = SLO_EVENTS * len(timed) / sum(timed)
     say("slo", routes=SLO_ROUTES, metrics=len(metrics),
         lanes=card._cap_routes * len(metrics), flushes=len(flushes),
-        events_per_flush=SLO_EVENTS, rounds=rounds, kernel_launches=launches,
-        register_routes_s=f"{register_s:.3f}")
+        events_per_flush=SLO_EVENTS, longest_runs_summed=rounds,
+        kernel_launches=launches, register_routes_s=f"{register_s:.3f}")
     say("slo", events_per_s=f"{events_per_s:.1f}",
         flush_ms=",".join(f"{x * 1e3:.2f}" for x in timed),
         median_flush_ms=f"{statistics.median(timed) * 1e3:.3f}",
@@ -629,6 +707,7 @@ def slo_run(torch):
 
 
 def phase_sparse_path(torch):
+    """(launches of the per-round fleets, launches of the SLO fleet)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
@@ -641,12 +720,13 @@ def phase_sparse_path(torch):
         n, round_ms = sparse_fleet_run(torch, n_lanes, gen)
         launches += n
         ms[n_lanes].append(round_ms)
-    launches += slo_run(torch)
+    slo_launches = slo_run(torch)
     peak = torch.cuda.max_memory_allocated()
     say("sparse", round_ms_ratio_large_over_small=",".join(
         f"{b / a:.4f}" for a, b in zip(ms[L_SMALL], ms[L_LARGE])),
-        max_memory_allocated_bytes=peak, kernel_launches=launches)
-    return launches
+        max_memory_allocated_bytes=peak, kernel_launches=launches,
+        slo_kernel_launches=slo_launches)
+    return launches, slo_launches
 
 
 # --------------------------------------------------------------- phase 7
@@ -804,73 +884,157 @@ def phase_timing(torch, loops, launches):
                          ops_ms)]
 
 
-def phase_scatter_timing(torch, launches):
-    """B3: one round of K_ROUND Zipf(1.2) events against L_LARGE lanes
-    (2u, q90). The kernel's device time per launch is taken with the
-    stream held behind a sleep, so the launches queue up and run back to
-    back; the wrapper's host time per call is printed beside it."""
+L_FLUSH = 3 * 2 ** 20          # the SLO fleet's lanes: 2^20 routes x 3
+CHAIN_TICKS = 4096
+
+
+def queued_ms(torch, fn, n, clock_hz, reps=5):
+    """(device ms per call, host us per call), ``reps`` times: n calls of
+    ``fn`` with the stream held behind a ~30 ms sleep, so the launches
+    queue up and run back to back."""
+    device_ms, host_us = [], []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(0.03 * clock_hz))
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_us.append((time.perf_counter() - t0) / n * 1e6)
+        b.record()
+        b.synchronize()
+        device_ms.append(a.elapsed_time(b) / n)
+    return device_ms, host_us
+
+
+def b3_batches(torch):
+    """{label: (lanes, items, mask, quantile)} on the card: one round of
+    K_ROUND distinct Zipf(1.2) lanes at L_LARGE (q90), and one SLO-sized
+    flush at L_FLUSH: 4096 observations on Zipf(1.2) routes of 10^6 and a
+    uniform metric, stably sorted by lane (the SLOFleet's runs), with the
+    fleet's per-lane targets."""
+    import numpy as np
+    from repro_torch.serve import DEFAULT_METRICS
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    lanes, items = zipf_rounds(torch, L_LARGE, 1, gen)[0]
+    ones = torch.ones(K_ROUND, dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(3)
+    flush = ((rng.zipf(ZIPF_A, SLO_EVENTS) - 1) % SLO_ROUTES * 3
+             + rng.integers(0, 3, SLO_EVENTS))      # lane ids
+    order = np.argsort(flush, kind="stable")
+    vals = rng.lognormal(3.0, 1.0, SLO_EVENTS).astype(np.float32)[order]
+    q_slo = torch.tensor([q for _, q in DEFAULT_METRICS],
+                         device=dev).repeat(L_FLUSH // 3)
+    return {
+        "round": (lanes, items, ones, torch.full((L_LARGE,), 0.9,
+                                                 device=dev)),
+        "flush": (torch.from_numpy(flush[order].astype(np.int32)).to(dev),
+                  torch.from_numpy(vals).to(dev),
+                  torch.ones(SLO_EVENTS, dtype=torch.int32, device=dev),
+                  q_slo)}
+
+
+def phase_scatter_timing(torch, gm, launches):
+    """B3 timed twice: one round of K_ROUND distinct lanes at L_LARGE (the
+    per-round path, runs of length 1) and one SLO-sized flush at L_FLUSH
+    (runs of one lane's events, the SLOFleet's path), each held against
+    the plain version first. The serial-chain floor of a batch is its
+    longest run times one tick's dependent latency, measured as one run
+    of CHAIN_TICKS events on one lane (one thread) divided by CHAIN_TICKS.
+    ``launches`` is (per-round fleets', SLO fleet's) from phase 6."""
     from repro_torch.core import program as program_mod
     from repro_torch.kernels import frugal_update as fk
 
     dev = torch.device("cuda")
     prog = program_mod.make_program("2u")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(3)
-    lanes, items = zipf_rounds(torch, L_LARGE, 1, gen)[0]
-    mask = torch.ones(K_ROUND, dtype=torch.int32, device=dev)
-    q = torch.full((L_LARGE,), 0.9, device=dev)
-    fresh = (torch.zeros(L_LARGE, device=dev), torch.ones(L_LARGE, device=dev),
-             torch.ones(L_LARGE, device=dev),
-             torch.zeros(L_LARGE, dtype=torch.int32, device=dev))
-    kp = tuple(x.clone() for x in fresh)
-    rp = tuple(x.clone() for x in fresh)
-    fk.frugal_program_scatter(prog, lanes, items, mask, kp[:3], kp[3], q, 0)
-    fk.frugal_program_scatter_reference(prog, lanes, items, mask, rp[:3],
-                                        rp[3], q, 0)
-    torch.cuda.synchronize()
-    if not same_bits(torch, kp, rp):
-        fail("scatter timing: the kernel's round differs from the plain "
-             "version")
-    err = max_abs_err(kp[:3], rp[:3])
-
     sm_clocks_per_s, clock_hz = card_sm_clocks_per_s(torch)
-    n, device_ms, host_us = 200, [], []
-    for _ in range(5):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(0.03 * clock_hz))    # ~30 ms of queue
-        a.record()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fk.frugal_program_scatter(prog, lanes, items, mask, kp[:3],
-                                      kp[3], q, 0)
-        host_us.append((time.perf_counter() - t0) / n * 1e6)
-        b.record()
-        b.synchronize()
-        device_ms.append(a.elapsed_time(b) / n)
-    plain_ms = event_ms(torch, lambda: fk.frugal_program_scatter_reference(
-        prog, lanes, items, mask, rp[:3], rp[3], q, 0), 6)[1:]
 
-    per_event = (lanes.element_size() + items.element_size()
-                 + mask.element_size() + q.element_size()
-                 + 2 * sum(x.element_size() for x in kp))
-    nbytes = K_ROUND * per_event
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms, ops_binding = operation_bound_ms(
-        ((OPS_2U_LANE_TICK, K_ROUND), (OPS_TICK, K_ROUND),
-         (OPS_CLOCK, K_ROUND)), sm_clocks_per_s)
-    ms = statistics.median(device_ms)
-    say("timing", kernel="B3", lanes=L_LARGE, events=K_ROUND,
-        device_ms_per_launch=",".join(f"{v:.5f}" for v in device_ms),
-        host_us_per_call=",".join(f"{v:.2f}" for v in host_us),
-        plain_ms=",".join(f"{v:.4f}" for v in plain_ms))
-    say("timing", kernel="B3", bytes=nbytes, bytes_per_event=per_event,
-        bytes_ms=f"{bytes_ms:.4e}", operations_ms=f"{ops_ms:.4e}",
-        operations_bound_by=ops_binding,
-        bound_share=f"{max(bytes_ms, ops_ms) / ms:.4e}")
-    return kernel_entry("frugal_program_scatter", SCATTER_SOURCE,
-                        TPU_KERNEL_B3, launches, err, ms,
-                        statistics.median(plain_ms), bytes_ms, ops_ms)
+    def fresh(n_lanes):
+        return (torch.zeros(n_lanes, device=dev),
+                torch.ones(n_lanes, device=dev),
+                torch.ones(n_lanes, device=dev),
+                torch.zeros(n_lanes, dtype=torch.int32, device=dev))
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    chain_items = torch.empty(CHAIN_TICKS, device=dev).log_normal_(
+        3.0, 1.0, generator=gen)
+    chain_lanes = torch.zeros(CHAIN_TICKS, dtype=torch.int32, device=dev)
+    st = fresh(1)
+    chain_q = torch.full((1,), 0.9, device=dev)
+    tick_ms = {}
+    for masked in (False, True):
+        mask = torch.ones(CHAIN_TICKS, dtype=torch.int32, device=dev) \
+            if masked else None
+        chain_ms, _ = queued_ms(torch, lambda: fk.frugal_program_scatter(
+            prog, chain_lanes, chain_items, mask, st[:3], st[3], chain_q, 0),
+            20, clock_hz)
+        tick_ms[masked] = statistics.median(chain_ms) / CHAIN_TICKS
+        say("timing", kernel="B3", serial_chain_run=CHAIN_TICKS,
+            mask="given" if masked else "None",
+            device_ms_per_launch=",".join(f"{v:.5f}" for v in chain_ms),
+            tick_latency_us=f"{tick_ms[masked] * 1e3:.5f}",
+            note="one lane, one thread: the dependent latency of a tick")
+
+    entries = []
+    for (label, (lanes, items, mask, q)), n_launches in zip(
+            b3_batches(torch).items(), launches):
+        n_lanes = q.numel()
+        runs = gm.run_lengths(lanes.cpu().numpy())
+        longest = int(runs.max())
+        kp, rp = fresh(n_lanes), fresh(n_lanes)
+        fk.frugal_program_scatter(prog, lanes, items, mask, kp[:3], kp[3],
+                                  q, 0)
+        fk.frugal_program_scatter_reference(prog, lanes, items, mask,
+                                            rp[:3], rp[3], q, 0)
+        torch.cuda.synchronize()
+        if not same_bits(torch, kp, rp):
+            fail(f"B3 timing ({label}): the kernel differs from the plain "
+                 "version")
+        err = max_abs_err(kp[:3], rp[:3])
+        device_ms, host_us = queued_ms(
+            torch, lambda: fk.frugal_program_scatter(
+                prog, lanes, items, mask, kp[:3], kp[3], q, 0),
+            200, clock_hz)
+        plain_ms = event_ms(
+            torch, lambda: fk.frugal_program_scatter_reference(
+                prog, lanes, items, mask, rp[:3], rp[3], q, 0), 3)[1:]
+        k = lanes.numel()
+        per_slot = lanes.element_size() + items.element_size() \
+            + mask.element_size()
+        per_run = q.element_size() + 2 * sum(x.element_size() for x in kp)
+        nbytes = k * per_slot + len(runs) * per_run
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms, ops_binding = operation_bound_ms(
+            ((OPS_2U_LANE_TICK, k), (OPS_TICK, k), (OPS_CLOCK, k)),
+            sm_clocks_per_s)
+        ms = statistics.median(device_ms)
+        floor_ms = longest * tick_ms[mask is not None]
+        say("timing", kernel="B3", batch=label, lanes=n_lanes, events=k,
+            runs=len(runs), longest_run=longest,
+            device_ms_per_launch=",".join(f"{v:.5f}" for v in device_ms),
+            host_us_per_call=",".join(f"{v:.2f}" for v in host_us),
+            plain_ms=",".join(f"{v:.4f}" for v in plain_ms))
+        say("timing", kernel="B3", batch=label, bytes=nbytes,
+            bytes_per_slot=per_slot, bytes_per_run=per_run,
+            bytes_ms=f"{bytes_ms:.4e}", operations_ms=f"{ops_ms:.4e}",
+            operations_bound_by=ops_binding,
+            bound_share=f"{max(bytes_ms, ops_ms) / ms:.4e}",
+            serial_chain_floor_ms=f"{floor_ms:.5f}",
+            serial_chain_share=f"{floor_ms / ms:.4f}")
+        name = {"round": f"frugal_program_scatter[round: {k} distinct "
+                         f"lanes, L={n_lanes}]",
+                "flush": f"frugal_program_scatter[SLO flush: {k} events in "
+                         f"{len(runs)} runs, L={n_lanes}]"}[label]
+        entries.append(kernel_entry(name, SCATTER_SOURCE, TPU_KERNEL_B3,
+                                    n_launches, err, ms,
+                                    statistics.median(plain_ms), bytes_ms,
+                                    ops_ms))
+    return entries
 
 
 def main() -> None:
@@ -896,12 +1060,12 @@ def main() -> None:
     launches = phase_main_path(torch)
     sparse_launches = phase_sparse_path(torch)
     entries = phase_timing(torch, loops, launches)
-    entries.append(phase_scatter_timing(torch, sparse_launches))
+    entries += phase_scatter_timing(torch, gm, sparse_launches)
     torch.cuda.synchronize()
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("JAX or the JAX package was imported")
     print("kernels: frugal_program_dense[1u,2u,2u-decay,1u-window,2u-window]"
-          ", frugal_program_scatter[same five]")
+          ", frugal_program_scatter (run kernel)[same five]")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -50,11 +50,10 @@ def _lane_tick(program, planes, ticks, q, items, seed, g_offset, scalars):
 
 
 def _check_sparse_lanes(lanes, items, mask, num_lanes):
-    """Host-side check of the ``tick_lanes_sparse`` round contract (a
-    debugging aid, not a hot path): lane ids lie in [0, L), masked-in
-    lanes are distinct (same-round events would race in the scatter and
-    share one tick's uniform), and no masked-out pad names a masked-in
-    lane (its unchanged state could overwrite the real update)."""
+    """Host-side check of the round contract, the strict case of
+    ``tick_lanes_sparse``'s run contract (a debugging aid, not a hot
+    path): lane ids lie in [0, L), masked-in lanes are distinct, and no
+    masked-out pad names a masked-in lane."""
     ln = lanes.cpu().numpy()
     mk = (~torch.isnan(items) if mask is None else mask != 0).cpu().numpy()
     out = ln[(ln < 0) | (ln >= num_lanes)]
@@ -66,14 +65,15 @@ def _check_sparse_lanes(lanes, items, mask, num_lanes):
     if dupes.size:
         raise ValueError(
             f"tick_lanes_sparse: lanes {dupes[:8].tolist()} repeat within "
-            "one round — split same-lane events into successive calls in "
-            "arrival order (serve.SLOFleet.flush does this)")
+            "one round — the round contract that check_duplicates checks; "
+            "without the check, one call takes each lane's events as one "
+            "run of adjacent slots in arrival order")
     bad_pads = np.intersect1d(ln[~mk], uniq)
     if bad_pads.size:
         raise ValueError(
             f"tick_lanes_sparse: masked-out pad slots reuse event lanes "
             f"{bad_pads[:8].tolist()} — pad with lanes that have no event "
-            "this round (a pad's store would race with the event's)")
+            "this round")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,22 +239,27 @@ class QuantileFleet:
                           donate: bool = False,
                           check_duplicates: bool = False
                           ) -> "QuantileFleet":
-        """O(events) event round: gather the named lanes, tick each once,
-        scatter back (``kernels.ops.frugal_update_sparse``: the scatter
-        kernel on the card, its plain version on the CPU). Needs a per-lane
-        cursor. ``lanes`` must not repeat among masked-in slots (split
-        same-lane events into successive rounds, in arrival order, as
-        ``serve.SLOFleet.flush`` does). Items on mask-0 slots are forced to
-        NaN, so a pad never moves state without its clock; pad with lanes
-        that have no event this round.
+        """O(events) event ingest: slot j ticks lane ``lanes[j]`` once, in
+        one launch (``kernels.ops.frugal_update_sparse``: the run kernel on
+        the card, its plain version on the CPU). Needs a per-lane cursor.
+        ``mask`` advances each slot's lane clock (None: where the item is
+        not NaN); a slot with mask 0 ticks with a NaN item, so a pad never
+        moves state without its clock.
+
+        Run contract: each lane's masked-in events are adjacent and in
+        arrival order (a stable sort by lane gives this, as
+        ``serve.SLOFleet.flush`` does), and distinct runs of adjacent slots
+        name distinct lanes, except runs of pads only. A round of distinct
+        lanes is the case of runs of length 1.
 
         ``donate=True`` updates THIS fleet's plane and clock tensors in
-        place (per-round cost flat in L, the serve path's mode): the old
-        fleet object then aliases the new state, so use only the returned
-        fleet. The default clones the planes and the clock first, one [L]
-        copy per plane, and leaves this fleet as it was.
-        ``check_duplicates=True`` adds a host-side check of the round
-        contract (a debugging aid; it synchronises with the card).
+        place (cost flat in L, the serve path's mode): the old fleet object
+        then aliases the new state, so use only the returned fleet. The
+        default clones the planes and the clock first, one [L] copy per
+        plane, and leaves this fleet as it was.
+        ``check_duplicates=True`` adds a host-side check of the stricter
+        round contract (distinct masked-in lanes, pads on lanes of their
+        own; a debugging aid that synchronises with the card).
         """
         if not self.cursor.per_lane:
             raise ValueError("tick_lanes_sparse needs a per-lane cursor "
@@ -271,10 +276,6 @@ class QuantileFleet:
             mask = self._on_device(mask, torch.int32)
         if check_duplicates:
             _check_sparse_lanes(lanes, items, mask, self.num_lanes)
-        if mask is None:
-            mask = (~torch.isnan(items)).to(torch.int32)
-        else:
-            items = torch.where(mask == 0, float("nan"), items)
         planes, ticks = kernel_ops.frugal_update_sparse(
             lanes, items, mask, sk.planes(), cur.t_offset, sk.quantile,
             cur.seed, program=self.spec.program,

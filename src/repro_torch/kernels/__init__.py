@@ -2,10 +2,11 @@
 
   frugal_update.py — the kernels' wrappers (CUDA C++ in csrc/, built by
                      build.py) and their plain PyTorch versions: the dense
-                     program kernel and the sparse scatter kernel.
+                     program kernel and the sparse run kernel.
   ops.py           — the entry points: frugal_update_auto (one dense
                      launch), frugal_update_blocked (block_t-row dense
-                     launches) and frugal_update_sparse (one event round).
+                     launches) and frugal_update_sparse (one launch of
+                     event runs).
 """
 from .frugal_update import (frugal_program_dense,
                             frugal_program_dense_reference,

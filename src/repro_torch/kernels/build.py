@@ -1,7 +1,7 @@
 """Build and load the CUDA kernel library at first use.
 
 ``nvcc`` compiles each kernel source of ``csrc/`` (``frugal_update.cu``,
-the dense kernel; ``frugal_scatter.cu``, the sparse event kernel) for
+the dense kernel; ``frugal_scatter.cu``, the sparse event run kernel) for
 ``sm_90a``, one compiler process per source, all started together, and
 links the objects into one shared library with a plain C interface,
 loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds). The

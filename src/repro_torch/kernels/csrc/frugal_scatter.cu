@@ -1,31 +1,35 @@
-// The sparse event-round kernel for Hopper (sm_90a): K events
-// gathered, ticked and scattered in place against L resident lanes, one
-// template instantiation per kernel family.
+// The sparse event kernel for Hopper (sm_90a): a batch of K event slots,
+// grouped into runs of one lane's events, applied in place against L
+// resident lanes, one template instantiation per kernel family.
 //
 // Replaces the Pallas kernel of the JAX package's kernels/frugal_update.py:
-//   B3  frugal_program_scatter_pallas / _scatter_kernel  (a sequential
-//       grid over K event slots against full-array, input/output-aliased
-//       state refs, block_k slots per step).
+//   B3  frugal_program_scatter_pallas / _scatter_kernel  (:271 / :221,
+//       pallas_call :327: a sequential "arbitrary" grid over the K event
+//       slots against full-array, input/output-aliased state refs, so it
+//       applies events in slot order).
 //
-// What bounds it on this card. Per event the function reads the lane id,
-// item, mask and target, the lane's planes and clock, and writes the planes
-// and clock back: about 48 bytes for 2u (4 x 4 B of event operands, 3
-// planes and the clock read and written). At K = 4096 that is about
-// 0.2 MB, under 0.1 us of HBM time; the two hash rounds and the tick are
-// about 60 operations per event, under 0.01 us of issue time over the
-// card. Neither binds: the launch itself (a few us) sets the time of a
-// round. PERF.md records the measured numbers.
+// What bounds it on this card. Bytes: each slot's lane id and item (and
+// mask, where one is given) are read once, and each run reads its lane's
+// target, planes and clock and writes planes and clock back once:
+// O(N + 2 R state) for N slots in R runs, about 0.15 MB for an SLO flush
+// of 4096 events (2u), under 0.05 us of HBM time. Operations (two hash rounds and
+// the tick, about 60 per event) take less. What binds is the serial chain
+// of the longest run: a lane's ticks depend on each other, so a run of n
+// events takes n dependent ticks on one thread. PERF.md records the
+// measured per-tick latency, the launch and the bounds.
 //
-// What the design does about it. One thread per event slot, guarded by
-// e < K: no K padding and no block_k multiple. Each thread loads its slot,
-// gathers its lane's planes and clock, hashes the uniform in registers,
-// runs the family's tick (frugal_tick.cuh: ft_run_event) and stores in
-// place into the caller's tensors, so traffic is O(K), never O(L). The
-// TPU kernel's grid runs in order ("arbitrary"); here threads run in no
-// order, so masked-in lanes must be distinct within a launch, and the
-// wrapper pads nothing (the JAX wrapper's K padding on the first event's
-// lane would race with that event's store here). Pads a caller makes on a
-// lane with no event store identical bytes, a benign race.
+// What the design does about it. One thread per slot; the thread of a
+// run's first slot (e == 0 or lanes[e] != lanes[e-1]) walks the whole run
+// in slot order with the lane's state and clock in registers
+// (frugal_tick.cuh: ft_run_lane_events), and every other thread returns.
+// A whole flush of events, however many a lane has, is one launch, and
+// each lane gets the result of its events applied one round at a time,
+// which is what the TPU kernel's in-order walk gives. The walk is a
+// software pipeline: while slot j ticks, slot j+1's uniform is hashed and
+// slot j+2's operands are loaded (none depends on the state), so per event
+// what remains is the tick's dependent chain and the loop's own work. The
+// caller sorts events by lane (stably, to keep arrival order); a round of
+// distinct lanes is a batch of runs of length 1.
 #include <cuda_runtime.h>
 
 #include "frugal_tick.cuh"
@@ -35,12 +39,14 @@ __global__ void __launch_bounds__(1024)
 frugal_scatter_kernel(const FtScatterArgs a) {
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= a.K) return;
-  ft_run_event<FAM>(a, e);
+  if (e > 0 && a.lanes[e] == a.lanes[e - 1]) return;   // not a run's head
+  ft_run_lane_events<FAM>(a, e);
 }
 
-// Launch the scatter kernel of `family` (FtFamily) on `stream`. Returns the
-// launch's cudaError_t (0 on success). Allocates nothing and does not
-// synchronise. K = 0 launches nothing and returns 0.
+// Launch the run kernel of `family` (FtFamily) on `stream`. `mask` may be
+// null (mask = item is not NaN). Returns the launch's cudaError_t (0 on
+// success). Allocates nothing and does not synchronise. K = 0 launches
+// nothing and returns 0.
 extern "C" int frugal_scatter_launch(
     int family, const int32_t* lanes, const float* items,
     const int32_t* mask, const float* quantile, int32_t q_per_lane,

@@ -1,6 +1,6 @@
 // Per-lane tick arithmetic of the frugal lane programs, shared by the CUDA
-// kernels (frugal_update.cu: dense; frugal_scatter.cu: sparse events) and a
-// host build (tick_host_shim.cpp) that the CPU tests hold bit-for-bit
+// kernels (frugal_update.cu: dense; frugal_scatter.cu: sparse event runs)
+// and a host build (tick_host_shim.cpp) that the CPU tests hold bit-for-bit
 // against the JAX package.
 //
 // Each function transcribes one expression tree of the JAX package
@@ -362,15 +362,23 @@ FT_HD void ft_run_lane(const FtDenseArgs& a, int64_t lane) {
   }
 }
 
-// ------------------------------------------------------- one sparse event
-// Operands of one sparse event round: K event slots against L resident
+// ------------------------------------------------------ sparse event runs
+// Operands of one batch of sparse events: K event slots against L resident
 // lanes whose state rides unpacked float planes (the program's
 // plane_fields order, each [L]) and an [L] int32 per-lane clock, all
 // updated in place. Unused plane slots are null.
+//
+// Run contract: a run is a maximal stretch of adjacent slots naming one
+// lane. Each lane's masked-in events lie in one run, in arrival order, and
+// distinct runs name distinct lanes, except runs made only of pads (mask
+// 0 or NaN items), which store their lane's state as a NaN tick leaves it
+// (the same bytes however often it runs). A round of distinct lanes is the
+// special case of runs of length 1.
 struct FtScatterArgs {
-  const int32_t* lanes;     // [K] event lane ids (masked-in ids distinct)
-  const float* items;       // [K] float32 (NaN where mask is 0)
-  const int32_t* mask;      // [K] 1 advances the lane's clock, 0 is a pad
+  const int32_t* lanes;     // [K] event lane ids, each lane's events adjacent
+  const float* items;       // [K] float32
+  const int32_t* mask;      // [K] 1 advances the lane's clock, 0 is a pad;
+                            // null: mask = (item is not NaN)
   const float* quantile;    // [L] per-lane targets, or [1] for all lanes
   float* planes[6];         // (m, step, sign, m2, step2, sign2) as present
   int32_t* ticks;           // [L] per-lane clock
@@ -410,64 +418,113 @@ inline FtScatterArgs ft_scatter_args(
   return a;
 }
 
-// Event slot `e`: gather its lane's planes and clock, tick once with the
-// uniform keyed on (seed, the lane's own tick, absolute lane id), store the
-// planes back and the clock advanced by the slot's mask. A pad slot (mask
-// 0, NaN item) stores its lane's state unchanged; pads that share a lane
-// with no real event all store the same bytes. A lane id outside [0, L)
-// is skipped: nothing is read or written for it.
+// Slot j's item and mask: a null mask counts the slot iff its item is not
+// NaN; a slot with mask 0 ticks with a NaN item, so it never moves state
+// without its clock.
+FT_HD void ft_slot(const FtScatterArgs& a, int64_t j, float& item,
+                   int32_t& mk) {
+  item = a.items[j];
+  mk = a.mask ? a.mask[j] : (int32_t)(item == item);
+  item = mk != 0 ? item : ft_as_float(0x7FC00000u);
+}
+
+// The run of lane lanes[head] that starts at slot `head`: load the lane's
+// planes, clock and target once, tick once per slot j = head, head+1, ...
+// while lanes[j] names the lane, each with the uniform keyed on (seed, the
+// lane's own tick, absolute lane id) and the clock advanced by the slot's
+// mask, then store planes and clock once. This equals the slots applied
+// one round at a time in slot order: a lane's tick reads only its own
+// state and clock. A lane id outside [0, L) is skipped: nothing is read
+// or written for its run.
 template <int FAM>
-FT_HD void ft_run_event(const FtScatterArgs& a, int64_t e) {
-  const int32_t lane = a.lanes[e];
+FT_HD void ft_run_lane_events(const FtScatterArgs& a, int64_t head) {
+  const int32_t lane = a.lanes[head];
   if (lane < 0 || (int64_t)lane >= a.L) return;
-  const float item = a.items[e];
-  const int32_t mk = a.mask[e];
   const float q = a.quantile[a.q_per_lane ? lane : 0];
-  const int32_t tick = a.ticks[lane];
   const int32_t lane_id = ft_i32((uint32_t)a.g_offset + (uint32_t)lane);
-  const float u = ft_counter_uniform(a.seed, tick, lane_id);
+  const float alpha = ft_as_float((uint32_t)a.s0);
+  const float floor_ = ft_as_float((uint32_t)a.s1);
   float* const* p = a.planes;
-  switch (FAM) {
-    case FT_1U: {
-      float m = p[0][lane];
-      ft_tick_1u(m, item, u, q);
-      p[0][lane] = m;
-      break;
-    }
-    case FT_2U:
-    case FT_2U_DECAY: {
-      float m = p[0][lane], step = p[1][lane], sign = p[2][lane];
-      if (FAM == FT_2U)
-        ft_tick_2u(m, step, sign, item, u, q);
-      else
-        ft_tick_2u_decay(m, step, sign, item, u, q,
-                         ft_as_float((uint32_t)a.s0),
-                         ft_as_float((uint32_t)a.s1));
-      p[0][lane] = m;
-      p[1][lane] = step;
-      p[2][lane] = sign;
-      break;
-    }
-    case FT_1U_WINDOW: {
-      float m = p[0][lane], m2 = p[1][lane];
-      ft_tick_1u_window(m, m2, item, u, q, tick, a.s0);
-      p[0][lane] = m;
-      p[1][lane] = m2;
-      break;
-    }
-    case FT_2U_WINDOW: {
-      float m = p[0][lane], step = p[1][lane], sign = p[2][lane];
-      float m2 = p[3][lane], step2 = p[4][lane], sign2 = p[5][lane];
-      ft_tick_2u_window(m, step, sign, m2, step2, sign2, item, u, q, tick,
-                        a.s0);
-      p[0][lane] = m;
-      p[1][lane] = step;
-      p[2][lane] = sign;
-      p[3][lane] = m2;
-      p[4][lane] = step2;
-      p[5][lane] = sign2;
-      break;
-    }
+  uint32_t tick = (uint32_t)a.ticks[lane];
+
+  float m = p[0][lane], step = 1.0f, sign = 1.0f;
+  float m2 = 0.0f, step2 = 1.0f, sign2 = 1.0f;
+  if (FAM == FT_2U || FAM == FT_2U_DECAY || FAM == FT_2U_WINDOW) {
+    step = p[1][lane];
+    sign = p[2][lane];
   }
-  a.ticks[lane] = ft_i32((uint32_t)tick + (uint32_t)mk);
+  if (FAM == FT_1U_WINDOW) m2 = p[1][lane];
+  if (FAM == FT_2U_WINDOW) {
+    m2 = p[3][lane];
+    step2 = p[4][lane];
+    sign2 = p[5][lane];
+  }
+
+  // A software pipeline over the run: slot j ticks while slot j+1's
+  // uniform is hashed and slot j+2's operands are loaded. None of them
+  // depends on the state, so each load has a whole tick to arrive and the
+  // tick's dependent chain is what remains per event. Two copies of the
+  // body per trip (unroll 2) measured faster on sm_90a than one or four
+  // (PERF.md).
+  const int64_t last = a.K - 1;
+  int64_t j = head;
+  float item;
+  int32_t mk;
+  ft_slot(a, j, item, mk);
+  float u = ft_counter_uniform(a.seed, ft_i32(tick), lane_id);
+  int64_t jn = j < last ? j + 1 : j;
+  int32_t lane_n = a.lanes[jn];
+  float item_n;
+  int32_t mk_n;
+  ft_slot(a, jn, item_n, mk_n);
+#ifdef __CUDA_ARCH__
+#pragma unroll 2
+#endif
+  for (;;) {
+    const int32_t t = ft_i32(tick);
+    tick += (uint32_t)mk;
+    const bool more = jn != j && lane_n == lane;
+    const int64_t jnn = jn < last ? jn + 1 : jn;
+    const int32_t lane_nn = a.lanes[jnn];
+    float item_nn;
+    int32_t mk_nn;
+    ft_slot(a, jnn, item_nn, mk_nn);
+    const float u_n = ft_counter_uniform(a.seed, ft_i32(tick), lane_id);
+    switch (FAM) {
+      case FT_1U: ft_tick_1u(m, item, u, q); break;
+      case FT_2U: ft_tick_2u(m, step, sign, item, u, q); break;
+      case FT_2U_DECAY:
+        ft_tick_2u_decay(m, step, sign, item, u, q, alpha, floor_);
+        break;
+      case FT_1U_WINDOW:
+        ft_tick_1u_window(m, m2, item, u, q, t, a.s0);
+        break;
+      case FT_2U_WINDOW:
+        ft_tick_2u_window(m, step, sign, m2, step2, sign2, item, u, q, t,
+                          a.s0);
+        break;
+    }
+    if (!more) break;
+    j = jn;
+    jn = jnn;
+    item = item_n;
+    mk = mk_n;
+    u = u_n;
+    lane_n = lane_nn;
+    item_n = item_nn;
+    mk_n = mk_nn;
+  }
+
+  p[0][lane] = m;
+  if (FAM == FT_2U || FAM == FT_2U_DECAY || FAM == FT_2U_WINDOW) {
+    p[1][lane] = step;
+    p[2][lane] = sign;
+  }
+  if (FAM == FT_1U_WINDOW) p[1][lane] = m2;
+  if (FAM == FT_2U_WINDOW) {
+    p[3][lane] = m2;
+    p[4][lane] = step2;
+    p[5][lane] = sign2;
+  }
+  a.ticks[lane] = ft_i32(tick);
 }

@@ -84,8 +84,9 @@ int ft_host_dense(int family, const float* items, const float* quantile,
   return 0;
 }
 
-// The scatter kernel's whole round (ft_run_event), one event slot after
-// another, in place on the planes and the clock.
+// The run kernel's whole batch: every run's head walks its run
+// (ft_run_lane_events), one run after another, in place on the planes and
+// the clock. `mask` may be null (mask = item is not NaN).
 int ft_host_scatter(int family, const int32_t* lanes, const float* items,
                     const int32_t* mask, const float* quantile,
                     int32_t q_per_lane, void* p0, void* p1, void* p2,
@@ -97,12 +98,13 @@ int ft_host_scatter(int family, const int32_t* lanes, const float* items,
                                           ticks, K, L, seed, g_offset, s0,
                                           s1);
   for (int64_t e = 0; e < a.K; ++e) {
+    if (e > 0 && a.lanes[e] == a.lanes[e - 1]) continue;
     switch (family) {
-      case FT_1U: ft_run_event<FT_1U>(a, e); break;
-      case FT_2U: ft_run_event<FT_2U>(a, e); break;
-      case FT_2U_DECAY: ft_run_event<FT_2U_DECAY>(a, e); break;
-      case FT_1U_WINDOW: ft_run_event<FT_1U_WINDOW>(a, e); break;
-      case FT_2U_WINDOW: ft_run_event<FT_2U_WINDOW>(a, e); break;
+      case FT_1U: ft_run_lane_events<FT_1U>(a, e); break;
+      case FT_2U: ft_run_lane_events<FT_2U>(a, e); break;
+      case FT_2U_DECAY: ft_run_lane_events<FT_2U_DECAY>(a, e); break;
+      case FT_1U_WINDOW: ft_run_lane_events<FT_1U_WINDOW>(a, e); break;
+      case FT_2U_WINDOW: ft_run_lane_events<FT_2U_WINDOW>(a, e); break;
       default: return 1;
     }
   }

@@ -11,11 +11,12 @@ package's ``frugal_program_pallas_dma`` (B1), ``frugal_program_pallas``
 (B2, as launches of ``block_t`` rows) and ``frugal_program_pallas_gpu``
 (B4).
 
-Sparse event rounds: ``frugal_program_scatter`` gathers K event lanes,
-ticks each once and scatters back in place into unpacked planes and an [L]
-per-lane clock. On CUDA tensors it launches the kernel of
-``csrc/frugal_scatter.cu`` or raises; on CPU tensors it runs
-``frugal_program_scatter_reference``. It replaces the JAX package's
+Sparse events: ``frugal_program_scatter`` applies K event slots, grouped
+into runs of one lane's events, in place to unpacked planes and an [L]
+per-lane clock. On CUDA tensors it launches the run kernel of
+``csrc/frugal_scatter.cu`` (one thread walks each run) or raises; on CPU
+tensors it runs ``frugal_program_scatter_reference``, which applies the
+runs one round at a time. It replaces the JAX package's
 ``frugal_program_scatter_pallas`` (B3).
 
 ``launch_count`` counts dense kernel launches and ``scatter_launch_count``
@@ -137,7 +138,7 @@ def frugal_program_dense(program, items, words, quantile, seed,
     return outs
 
 
-# ------------------------------------------------------------ sparse rounds
+# ------------------------------------------------------------ sparse events
 def _check_scatter_operands(program, lanes, items, mask, planes, ticks,
                             quantile):
     layout = program.layout
@@ -147,7 +148,7 @@ def _check_scatter_operands(program, lanes, items, mask, planes, ticks,
     k = lanes.shape[0]
     for name, x, dt in (("items", items, torch.float32),
                         ("mask", mask, torch.int32)):
-        if x.dtype != dt or tuple(x.shape) != (k,):
+        if x is not None and (x.dtype != dt or tuple(x.shape) != (k,)):
             raise ValueError(f"{name} must be [{k}] {dt}, got "
                              f"{tuple(x.shape)} {x.dtype}")
     if len(planes) != len(layout.plane_fields):
@@ -166,51 +167,80 @@ def _check_scatter_operands(program, lanes, items, mask, planes, ticks,
         raise ValueError(f"quantile must be [{lanes_l}] or one float32, got "
                          f"{tuple(quantile.shape)} {quantile.dtype}")
     for x in (items, mask, *planes, ticks, quantile):
-        if x.device != lanes.device:
+        if x is not None and x.device != lanes.device:
             raise ValueError(f"operands on {x.device} and {lanes.device}; "
                              "move them to one device")
+
+
+def run_ranks(lanes):
+    """Each slot's position within its run of equal adjacent lane ids
+    (position minus run start): the round in which a round-by-round
+    application takes it."""
+    k = lanes.shape[0]
+    pos = torch.arange(k, device=lanes.device)
+    head = torch.ones(k, dtype=torch.bool, device=lanes.device)
+    head[1:] = lanes[1:] != lanes[:-1]
+    return pos - torch.cummax(torch.where(head, pos, 0), 0).values
 
 
 def frugal_program_scatter_reference(program, lanes, items, mask, planes,
                                      ticks, quantile, seed, scalars=None, *,
                                      g_offset=0):
-    """Plain PyTorch version of the scatter kernel: gather the event lanes'
-    planes, clocks and targets, run ``program.run_tick`` once with each
-    lane's own tick, and ``index_put_`` planes and clocks back in place.
-    Same operands and result as ``frugal_program_scatter``, on any device;
-    a lane id outside [0, L) raises here (the kernel skips it)."""
+    """Plain PyTorch version of the run kernel: rank each slot within its
+    run, then apply ranks 0, 1, ... as successive rounds, each a gather of
+    its lanes' planes, clocks and targets, ``program.run_tick`` once with
+    each lane's own tick, and an ``index_put_`` of planes and clocks back
+    in place. Same operands and result as ``frugal_program_scatter``, on
+    any device; a lane id outside [0, L) raises here (the kernel skips
+    it)."""
     _check_scatter_operands(program, lanes, items, mask, planes, ticks,
                             quantile)
-    idx = lanes.long()
-    ticks_s = ticks[idx]
+    n_lanes = ticks.shape[0]
+    if bool(((lanes < 0) | (lanes >= n_lanes)).any()):
+        raise ValueError(f"lane ids must lie in [0, {n_lanes})")
+    if mask is None:
+        mask = (~torch.isnan(items)).to(torch.int32)
+    items = torch.where(mask == 0, float("nan"), items)
     g_ids = crng.wrap_i32(g_offset) + lanes
     q = quantile.reshape(-1)
-    q_s = q[idx] if q.numel() > 1 else q.expand(lanes.shape)
-    ctx = frugal.TickCtx(quantile=q_s, t=ticks_s, seed=crng.wrap_i32(seed),
-                         lanes=g_ids, scalars=_scalar_slots(program, scalars))
-    u = crng.counter_uniform(ctx.seed, ticks_s, g_ids)
-    out = program.run_tick(tuple(p[idx] for p in planes), items, u, ctx)
-    for p, o in zip(planes, out):
-        p.index_put_((idx,), o)
-    ticks.index_put_((idx,), ticks_s + mask)
+    ctx_seed = crng.wrap_i32(seed)
+    slots = _scalar_slots(program, scalars)
+    rank = run_ranks(lanes)
+    for r in range(int(rank.max()) + 1 if lanes.shape[0] else 0):
+        sel = rank == r
+        idx = lanes[sel].long()
+        ticks_s = ticks[idx]
+        ctx = frugal.TickCtx(
+            quantile=q[idx] if q.numel() > 1 else q.expand(idx.shape),
+            t=ticks_s, seed=ctx_seed, lanes=g_ids[sel], scalars=slots)
+        u = crng.counter_uniform(ctx.seed, ticks_s, ctx.lanes)
+        out = program.run_tick(tuple(p[idx] for p in planes), items[sel], u,
+                               ctx)
+        for p, o in zip(planes, out):
+            p.index_put_((idx,), o)
+        ticks.index_put_((idx,), ticks_s + mask[sel])
     return tuple(planes), ticks
 
 
 def frugal_program_scatter(program, lanes, items, mask, planes, ticks,
                            quantile, seed, scalars=None, *, g_offset=0,
                            block_k=128):
-    """One sparse event round, in place: event slot e ticks lane
-    ``lanes[e]`` once with item ``items[e]``, the uniform
-    ``counter_uniform(seed, ticks[lane], g_offset + lane)`` and the target
-    ``quantile[lane]`` (or the one scalar), then advances
-    ``ticks[lane]`` by ``mask[e]``. Returns ``(planes, ticks)``: the
-    caller's tensors, updated.
+    """Apply K event slots in place: slot j ticks lane ``lanes[j]`` once
+    with item ``items[j]``, the uniform ``counter_uniform(seed,
+    ticks[lane], g_offset + lane)`` and the target ``quantile[lane]`` (or
+    the one scalar), then advances ``ticks[lane]`` by ``mask[j]``. A slot
+    with mask 0 ticks with a NaN item; ``mask=None`` means mask = (item is
+    not NaN). Returns ``(planes, ticks)``: the caller's tensors, updated.
 
-    Masked-in lanes must be distinct; a pad slot (mask 0, NaN item) stores
-    its lane unchanged and may share a lane only with other pads. Nothing
-    is padded here. ``block_k`` is the CUDA block size (a multiple of 32,
-    at most 1024). CPU tensors run the plain version; CUDA tensors launch
-    the kernel or raise.
+    Run contract: a run is a stretch of adjacent slots naming one lane.
+    Each lane's masked-in events lie in one run, in arrival order (a
+    stable sort by lane gives this), and distinct runs name distinct
+    lanes, except runs made only of pads (mask 0 or NaN items), which store
+    their lane's state unchanged. A round of distinct lanes is the case of
+    runs of length 1. The kernel walks each run on one thread; nothing is
+    padded here. ``block_k`` is the CUDA block size (a multiple of 32, at
+    most 1024). CPU tensors run the plain version; CUDA tensors launch the
+    kernel or raise.
     """
     global scatter_launch_count
     if lanes.device.type == "cpu":
@@ -229,7 +259,7 @@ def frugal_program_scatter(program, lanes, items, mask, planes, ticks,
         raise ValueError(f"block_k must be a multiple of 32 in [32, 1024], "
                          f"got {block_k}")
     for x in (lanes, items, mask, *planes, ticks, quantile):
-        if not x.is_contiguous():
+        if x is not None and not x.is_contiguous():
             raise ValueError("the scatter kernel takes contiguous tensors")
     k = lanes.shape[0]
     if k == 0:
@@ -242,7 +272,7 @@ def frugal_program_scatter(program, lanes, items, mask, planes, ticks,
         stream = torch.cuda.current_stream(lanes.device).cuda_stream
         err = load_library().frugal_scatter_launch(
             FAMILY_IDS[family], lanes.data_ptr(), items.data_ptr(),
-            mask.data_ptr(), quantile.data_ptr(),
+            None if mask is None else mask.data_ptr(), quantile.data_ptr(),
             int(quantile.numel() > 1), *ptrs, ticks.data_ptr(), k,
             ticks.shape[0], crng.wrap_i32(seed), crng.wrap_i32(g_offset),
             slots[0], slots[1], block_k, stream)

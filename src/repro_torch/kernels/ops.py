@@ -5,15 +5,16 @@
   * ``frugal_update_blocked`` — the same kernel launched once per
     ``block_t`` rows with the tick offset advanced (B2, the revisit grid),
     whose result must not depend on (block_g, block_t).
-  * ``frugal_update_sparse`` — one O(events) round of K events against
-    L resident lanes with per-lane clocks (B3, the scatter kernel).
+  * ``frugal_update_sparse`` — K events, in runs of one lane's events,
+    against L resident lanes with per-lane clocks, in one launch (B3, the
+    run kernel).
 
 The two dense entry points take and return the program's plane tuple,
 pack it into the serialized words around the kernel, and fan [T, G] items
 out to G·Q lanes (``lanes_per_group`` = Q) by index on the device. The JAX
 padding contract (padded lanes dropped, NaN-padded ticks as no-ops) holds
 without padded copies: the kernel masks the ragged lane edge and stops its
-row loop at T. The sparse round keeps its planes unpacked (its traffic is
+row loop at T. The sparse path keeps its planes unpacked (its traffic is
 O(K); packing would cost an O(L) pass).
 
 Dispatch is by the tensors' device: CUDA runs the kernel, CPU the plain
@@ -83,35 +84,40 @@ def frugal_update_auto(items, planes, quantile, key=None, *, seed=None,
 def frugal_update_sparse(lanes, items, mask, planes, ticks, quantile, seed,
                          scalars=(), *, program, g_offset=0, donate=False,
                          block_k: int = 128):
-    """One O(events) event round: gather the ``lanes`` rows of ``planes``
-    and ``ticks``, tick them once, scatter back. Returns the updated
-    ``(planes, ticks)``.
+    """K events in one launch: slot j ticks lane ``lanes[j]`` once, in
+    slot order within the lane. Returns the updated ``(planes, ticks)``.
 
     ``planes`` is the program's ordered unpacked plane tuple (each [L]),
     ``ticks`` the [L] int32 per-lane clock, ``quantile`` a scalar or [L]
-    targets (gathered per event). Masked-out slots (mask 0) must carry NaN
-    items and round-trip their lane bit-exactly; pad with a lane that has
-    no masked-in event this round. Masked-in lanes must be distinct.
-    Nothing is padded here (a pad on an event's lane would race with that
-    event's store on the card).
+    targets (read per lane). ``mask`` (or None: mask = item is not NaN)
+    advances each slot's lane clock; a slot with mask 0 ticks with a NaN
+    item and leaves its lane's state as a NaN tick does.
+
+    Run contract (``kernels.frugal_update.frugal_program_scatter``): each
+    lane's masked-in events are adjacent and in arrival order, and distinct
+    runs of adjacent slots name distinct lanes, except runs of pads only. A
+    round of distinct lanes is the case of runs of length 1. Nothing is
+    padded here.
 
     ``donate=True`` updates the caller's plane and clock tensors in place
     (one kernel launch, O(K) traffic): any object holding them sees the
     new state. ``donate=False`` clones the planes and the clock first,
     one [L] copy per plane, and leaves the inputs untouched. CUDA tensors
-    launch the scatter kernel, CPU tensors run its plain version.
+    launch the run kernel, CPU tensors run its plain version.
     """
     planes = tuple(planes)
     device = planes[0].device
     lanes = torch.as_tensor(lanes, device=device).to(torch.int32)
     items = torch.as_tensor(items, device=device).to(torch.float32)
-    mask = torch.as_tensor(mask, device=device).to(torch.int32)
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=device).to(
+            torch.int32).contiguous()
     q = torch.as_tensor(quantile, dtype=torch.float32, device=device)
     scalars = tuple(int(v) for v in scalars) or program.scalar_values()
     if not donate:
         planes = tuple(p.clone() for p in planes)
         ticks = ticks.clone()
     return frugal_program_scatter(
-        program, lanes.contiguous(), items.contiguous(), mask.contiguous(),
-        planes, ticks, q.reshape(-1).contiguous(), seed, scalars,
-        g_offset=g_offset, block_k=block_k)
+        program, lanes.contiguous(), items.contiguous(), mask, planes, ticks,
+        q.reshape(-1).contiguous(), seed, scalars, g_offset=g_offset,
+        block_k=block_k)

@@ -8,11 +8,12 @@ and draws ``counter_uniform(seed, tick, lane)``, so a lane's k-th event
 consumes the same uniform however events are batched, and the trajectory
 equals the paper's scalar Algorithm 3 run per lane.
 
-Events are buffered on the host (``observe``); ``flush`` splits them into
-rounds (a lane's r-th buffered event goes to round r) and applies each
-round: through ``tick_lanes`` over the whole fleet while it has at most
-``DENSE_LANES_MAX`` lanes, else through ``tick_lanes_sparse`` with
-``donate=True``, one scatter-kernel launch per round, O(events) work.
+Events are buffered on the host (``observe``); ``flush`` sorts them by
+lane, stably, and applies them: above ``DENSE_LANES_MAX`` lanes through
+one ``tick_lanes_sparse(donate=True)`` call, one launch of the run kernel
+per flush, O(events) work; at most that many, as rounds (a lane's r-th
+buffered event goes to round r), each through ``tick_lanes`` over the
+whole fleet.
 
 Memory: 2 sketch words per (route × metric) lane (m and the packed
 (step, sign) word), plus one int32 clock per lane. A 10^6-route
@@ -60,7 +61,7 @@ class SLOFleet:
     """
 
     # Up to this many lanes a flush round ticks the whole [C] state (one
-    # vectorized op); above it, rounds gather and scatter only the event
+    # vectorized op); above it, a flush gathers and scatters only the event
     # lanes, so a few observations against 10^6 routes never do O(C) work.
     DENSE_LANES_MAX = 4096
 
@@ -169,12 +170,14 @@ class SLOFleet:
         self._pending.append((self.lane(route, metric), float(value)))
 
     def flush(self):
-        """Apply the buffered events. Events for the same lane go to
-        successive rounds in arrival order, so each consumes its own
-        tick's uniform; distinct lanes share a round. A stable sort by lane
-        keeps each lane's events in order, so position minus run start is
-        an event's round. The dense and sparse branches give the same
-        trajectory."""
+        """Apply the buffered events. A stable sort by lane keeps each
+        lane's events in arrival order, so each consumes its own tick's
+        uniform. Above ``DENSE_LANES_MAX`` lanes the sorted events go to the
+        card in one ``tick_lanes_sparse`` call, one launch of the run kernel
+        (each lane's events are one run); at most that many, a lane's r-th
+        event goes to round r (position minus run start) and each round
+        ticks the whole fleet. Every event advances its lane's clock, a NaN
+        value too. The two branches give the same trajectory."""
         if not self._pending:
             return
         events, self._pending = self._pending, []
@@ -186,6 +189,16 @@ class SLOFleet:
         vals = np.fromiter((v for _, v in events), np.float32, n)
         order = np.argsort(lanes, kind="stable")
         sorted_lanes = lanes[order]
+        c = self._cap_routes * self.n_metrics
+        if c > self.DENSE_LANES_MAX:
+            # In place (donate=True): the pre-flush fleet is dead once the
+            # events apply.
+            dev = self.device
+            self._fleet = self._fleet.tick_lanes_sparse(
+                torch.from_numpy(sorted_lanes.astype(np.int32)).to(dev),
+                torch.from_numpy(vals[order]).to(dev),
+                torch.ones(n, dtype=torch.int32, device=dev), donate=True)
+            return
         run_start = np.zeros(n, np.int64)
         if n > 1:
             new_run = np.r_[True, sorted_lanes[1:] != sorted_lanes[:-1]]
@@ -194,44 +207,14 @@ class SLOFleet:
         round_of = np.empty(n, np.int64)
         round_of[order] = np.arange(n) - run_start
         n_rounds = int(round_of.max()) + 1
-        c = self._cap_routes * self.n_metrics
-        if c <= self.DENSE_LANES_MAX:
-            items = np.full((n_rounds, c), np.nan, np.float32)
-            occ = np.zeros((n_rounds, c), np.int32)
-            items[round_of, lanes] = vals
-            occ[round_of, lanes] = 1
-            items_d = torch.from_numpy(items).to(self.device)
-            occ_d = torch.from_numpy(occ).to(self.device)
-            for r in range(n_rounds):
-                self._fleet = self._fleet.tick_lanes(items_d[r], occ_d[r])
-            return
+        items = np.full((n_rounds, c), np.nan, np.float32)
+        occ = np.zeros((n_rounds, c), np.int32)
+        items[round_of, lanes] = vals
+        occ[round_of, lanes] = 1
+        items_d = torch.from_numpy(items).to(self.device)
+        occ_d = torch.from_numpy(occ).to(self.device)
         for r in range(n_rounds):
-            sel = round_of == r            # a boolean select keeps order
-            self._flush_round_sparse(lanes[sel].astype(np.int32),
-                                     vals[sel], c)
-
-    def _flush_round_sparse(self, lanes: np.ndarray, vals: np.ndarray,
-                            c: int):
-        """One O(events) round, in place (``donate=True``: the pre-round
-        fleet is dead once the round applies). The lane list is padded to
-        a power of two with one lane that has no event this round, so
-        every pad slot stores that lane's own unchanged state."""
-        k = len(lanes)
-        kp = 1 << max(0, (k - 1)).bit_length() if k > 1 else 1
-        if k == c:
-            kp = k   # every lane has an event: nothing free to pad with
-        if kp > k:
-            in_round = set(lanes.tolist())
-            pad_lane = next(i for i in range(c) if i not in in_round)
-            lanes = np.concatenate(
-                [lanes, np.full((kp - k,), pad_lane, np.int32)])
-            vals = np.concatenate(
-                [vals, np.full((kp - k,), np.nan, np.float32)])
-        mask = np.zeros((kp,), np.int32)
-        mask[:k] = 1
-        self._fleet = self._fleet.tick_lanes_sparse(
-            torch.from_numpy(lanes), torch.from_numpy(vals),
-            torch.from_numpy(mask), donate=True)
+            self._fleet = self._fleet.tick_lanes(items_d[r], occ_d[r])
 
     # ---------------------------------------------------------------- reads
     def estimate(self, route: str, metric: str) -> float:

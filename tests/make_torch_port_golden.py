@@ -18,6 +18,15 @@ program the file holds the starting planes and the planes and clocks after
 the rounds through ``repro.kernels.ops.frugal_update_sparse`` on its jnp
 scatter pair.
 
+A batch of event runs (keys ``runs/*`` and ``<family>/runs_*``): K = 512
+slots against the same L = 1031 lanes and starting planes, each lane's
+events adjacent in arrival order (``run_events``: Zipf(1.2) lanes, NaN
+items and mask-0 slots inside runs, pad-only runs, hot lanes' clocks
+before the int32 wrap and window-epoch edges). For each program the file
+holds the planes and clocks after the batch is split into rounds
+(``run_rounds``) and the rounds go through the same JAX function in
+order.
+
     PYTHONPATH=src python tests/make_torch_port_golden.py
 """
 import os
@@ -37,6 +46,11 @@ SPARSE_L, SPARSE_K, SPARSE_ROUNDS = 1031, 256, 4
 SPARSE_G_OFFSET = 2 ** 31 - 500
 WINDOW_EDGES = (2 ** 31 - 1, 2 ** 31 - 2, -2 ** 31, -2 ** 31 + 1, -1, 0,
                 -96, -97, 95, 96, -193, 191)
+RUNS_K = 512
+ZIPF_A = 1.2
+# Clocks of the four hottest lanes of a run batch: their long runs cross
+# the int32 wrap and window-epoch edges (W = 96).
+HOT_TICKS = (2 ** 31 - 40, 2 ** 31 - 200, -130, -1)
 
 
 def random_planes(rng, prog, lanes):
@@ -88,6 +102,86 @@ def sparse_case(prog, lanes_l, k, rounds, seed):
     """(planes, ticks, quantile, rounds) for ``prog`` from ``seed``."""
     planes = random_planes(np.random.default_rng([seed, 1]), prog, lanes_l)
     return (planes, *sparse_events(seed, lanes_l, k, rounds))
+
+
+def run_events(seed, lanes_l, k):
+    """(ticks [L], quantile [L], lanes [K], items [K], mask [K], pad_lane)
+    of one batch of event runs from numpy ``seed``.
+
+    Events go to Zipf(1.2)-ranked lanes, so the hottest lane's run is long
+    (about a sixth of the events); a tenth carry NaN items and a twentieth
+    are mask-0 slots (NaN items) inside runs. Each lane's events form one
+    run in arrival order, the runs in random order. Three lanes with no
+    event carry pad-only runs (mask 0, NaN items) of 1-4 slots, two runs
+    each, never adjacent; ``pad_lane`` is one of them. The four hottest
+    lanes' clocks are ``HOT_TICKS``; half the others sit at window-epoch
+    edges and the int32 wrap (minus 0-2), the rest anywhere."""
+    rng = np.random.default_rng(seed)
+    ticks = rng.integers(-2 ** 31, 2 ** 31, lanes_l).astype(np.int32)
+    half = lanes_l // 2
+    ticks[:half] = np.resize(np.asarray(WINDOW_EDGES, np.int32), half) \
+        - rng.integers(0, 3, half).astype(np.int32)
+    quantile = rng.uniform(0.05, 0.95, lanes_l).astype(np.float32)
+    by_rank = rng.permutation(lanes_l).astype(np.int32)
+    ticks[by_rank[:len(HOT_TICKS)]] = HOT_TICKS
+    pad_lanes = by_rank[-3:]
+    pads = [(int(lane), int(rng.integers(1, 5)))
+            for lane in np.repeat(pad_lanes, 2)]
+    n_ev = k - sum(n for _, n in pads)
+    lanes = by_rank[(rng.zipf(ZIPF_A, n_ev) - 1) % (lanes_l - 3)]
+    items = rng.integers(-40, 400, n_ev).astype(np.float32)
+    items[rng.random(n_ev) < 0.1] = np.nan
+    mask = np.ones(n_ev, np.int32)
+    off = rng.random(n_ev) < 0.05
+    mask[off] = 0
+    items[off] = np.nan
+    order = np.argsort(rng.permutation(lanes_l)[lanes], kind="stable")
+    lanes, items, mask = lanes[order], items[order], mask[order]
+    heads = np.flatnonzero(np.r_[True, lanes[1:] != lanes[:-1]])
+    at = np.sort(rng.choice(heads, len(pads), replace=False))
+    pads = [pads[i] for i in rng.permutation(len(pads))]
+    pos = np.repeat(at, [n for _, n in pads])
+    lanes = np.insert(lanes, pos, np.repeat([lane for lane, _ in pads],
+                                            [n for _, n in pads]))
+    items = np.insert(items, pos, np.float32(np.nan))
+    mask = np.insert(mask, pos, 0)
+    return (ticks, quantile, lanes.astype(np.int32), items.astype(np.float32),
+            mask.astype(np.int32), int(pad_lanes[0]))
+
+
+def run_case(prog, lanes_l, k, seed):
+    """(planes, ticks, quantile, (lanes, items, mask), pad_lane) of a run
+    batch for ``prog`` from ``seed``."""
+    planes = random_planes(np.random.default_rng([seed, 1]), prog, lanes_l)
+    ticks, quantile, lanes, items, mask, pad_lane = run_events(seed, lanes_l,
+                                                               k)
+    return planes, ticks, quantile, (lanes, items, mask), pad_lane
+
+
+def run_lengths(lanes):
+    """Lengths of the runs of equal adjacent lane ids."""
+    heads = np.flatnonzero(np.r_[True, lanes[1:] != lanes[:-1]])
+    return np.diff(np.r_[heads, lanes.size])
+
+
+def run_rounds(lanes, items, mask, pad_lane):
+    """A batch of runs as rounds for a round-by-round application: slot j
+    goes to round (j minus its run's start), in slot order. Every round is
+    padded to the number of runs with mask-0 NaN slots on ``pad_lane`` (a
+    lane the batch holds only pads for), so all rounds have one shape."""
+    head = np.r_[True, lanes[1:] != lanes[:-1]]
+    pos = np.arange(lanes.size)
+    rank = pos - np.maximum.accumulate(np.where(head, pos, 0))
+    width = int(head.sum())
+    out = []
+    for r in range(int(rank.max()) + 1):
+        sel = rank == r
+        n = width - int(sel.sum())
+        out.append((
+            np.r_[lanes[sel], np.full(n, pad_lane)].astype(np.int32),
+            np.r_[items[sel], np.full(n, np.nan)].astype(np.float32),
+            np.r_[mask[sel], np.zeros(n)].astype(np.int32)))
+    return out
 
 
 def golden_inputs():
@@ -157,6 +251,34 @@ def golden_sparse():
     return out
 
 
+def golden_runs(sparse):
+    """{key: array}: the run batch's inputs and, per program, the JAX
+    package's planes and clocks after its rounds, starting from the sparse
+    rounds' planes and targets (``sparse``, as ``golden_sparse`` made
+    them)."""
+    import jax.numpy as jnp
+    from repro.core import program as program_mod
+    from repro.kernels import ops
+
+    ticks, _, lanes, items, mask, pad_lane = run_events(SEED + 1, SPARSE_L,
+                                                        RUNS_K)
+    out = {"runs/ticks": ticks, "runs/lanes": lanes, "runs/items": items,
+           "runs/mask": mask}
+    quantile = jnp.asarray(sparse["sparse/quantile"])
+    for prog in program_mod.test_instances():
+        ps, tk = runs_start(sparse | out, prog, jnp.asarray)
+        for r_lanes, r_items, r_mask in run_rounds(lanes, items, mask,
+                                                   pad_lane):
+            ps, tk = ops.frugal_update_sparse(
+                jnp.asarray(r_lanes), jnp.asarray(r_items),
+                jnp.asarray(r_mask), ps, tk, quantile, COUNTER_SEED,
+                program=prog, g_offset=SPARSE_G_OFFSET)
+        for i, p_out in enumerate(ps):
+            out[f"{prog.family}/runs_out{i}"] = np.asarray(p_out)
+        out[f"{prog.family}/runs_ticks_out"] = np.asarray(tk)
+    return out
+
+
 def sparse_start(data, prog, conv):
     """(planes, ticks) a program's sparse rounds start from, each through
     ``conv`` (e.g. ``torch.from_numpy``); fresh copies."""
@@ -179,13 +301,36 @@ def sparse_final(data, prog):
         data[f"{prog.family}/sparse_ticks_out"]]
 
 
+def runs_start(data, prog, conv):
+    """(planes, ticks) the run batch starts from, each through ``conv``;
+    fresh copies."""
+    n = len(prog.layout.plane_fields)
+    return (tuple(conv(data[f"{prog.family}/sparse_in{i}"].copy())
+                  for i in range(n)), conv(data["runs/ticks"].copy()))
+
+
+def runs_batch(data, conv):
+    """(lanes, items, mask) of the run batch, each through ``conv``."""
+    return tuple(conv(data[f"runs/{n}"].copy())
+                 for n in ("lanes", "items", "mask"))
+
+
+def runs_final(data, prog):
+    """The JAX package's planes, then clocks, after the run batch."""
+    n = len(prog.layout.plane_fields)
+    return [data[f"{prog.family}/runs_out{i}"] for i in range(n)] + [
+        data[f"{prog.family}/runs_ticks_out"]]
+
+
 def build():
     items, quantile, planes = golden_inputs()
     arrays = golden_outputs(items, quantile, planes)
     arrays.update(items=items, quantile=quantile,
                   meta=np.asarray([G, Q, T, T_OFFSET, G_OFFSET,
                                    COUNTER_SEED], np.int64))
-    arrays.update(golden_sparse())
+    sparse = golden_sparse()
+    arrays.update(sparse)
+    arrays.update(golden_runs(sparse))
     return arrays
 
 

@@ -3,9 +3,11 @@
 The same Zipf(1.2)-routed observations (repeated lanes, so a flush splits
 into many rounds) go into both packages, with route growth through
 ``ensure_routes`` between flushes, on both flush branches: the dense one
-(``tick_lanes`` over the whole fleet, at most 4096 lanes) and the sparse
-one (``tick_lanes_sparse``, one scatter round per round, 2048 routes x 3
-metrics = 6144 lanes), vanilla and windowed (``2u-decay``). State carries
+(``tick_lanes`` over the whole fleet per round, at most 4096 lanes) and
+the sparse one (one ``tick_lanes_sparse`` call per flush, each lane's
+events one run, 2048 routes x 3 metrics = 6144 lanes), vanilla and
+windowed (``2u-decay``). The JAX fleet applies the sparse branch round by
+round, so the two agree only if a run equals its rounds. State carries
 across the two packages both ways and both continue bit-for-bit.
 
 Tolerance: bit-exact (float32 compared as int32 bit patterns, clocks
@@ -103,6 +105,31 @@ def test_summaries_match_jax(branch, windowed):
     assert tfl.memory_words() == jfl.memory_words() == 2
     assert tfl.state_words() == jfl.state_words()
     assert tfl.num_lanes == jfl.num_lanes and tfl.routes() == jfl.routes()
+
+
+@pytest.mark.parametrize("windowed", [False, True],
+                         ids=["2u", "2u-decay"])
+@pytest.mark.parametrize("branch", list(BRANCHES))
+def test_hot_route_and_nan_values_match_jax(branch, windowed):
+    """A third of the events on one route (runs of about a hundred per
+    lane) and NaN values, which advance their lane's clock in both
+    packages; the sparse branch makes one launch-sized call per flush."""
+    cap, _, total = BRANCHES[branch]
+    kw = dict(seed=11, capacity=cap, windowed=windowed, decay_half_life=64)
+    jfl, tfl = JSLOFleet(**kw), SLOFleet(device="cpu", **kw)
+    for fl in (jfl, tfl):
+        fl.ensure_routes(f"r{i}" for i in range(total))
+    rng = np.random.default_rng(21)
+    for f in range(2):
+        obs = observations(total, 900, 30 + f)
+        for i in np.flatnonzero(rng.random(len(obs)) < 0.33):
+            obs[i] = ("r5",) + obs[i][1:]
+        for i in np.flatnonzero(rng.random(len(obs)) < 0.05):
+            obs[i] = obs[i][:2] + (float("nan"),)
+        feed(jfl, obs)
+        feed(tfl, obs)
+        assert_same(jfl, tfl, f"flush {f}")
+    assert int(tfl._ticks.sum()) == 1800
 
 
 def test_observe_on_new_routes_grows_capacity():

@@ -2,14 +2,17 @@
 
 * CPU: ``kernels.ops.frugal_update_sparse`` (the plain PyTorch version on
   CPU tensors) vs the JAX package's ``frugal_update_sparse`` on its jnp
-  scatter pair (``interpret=None`` off a TPU); the scatter kernel's own
-  per-event arithmetic (``ft_run_event`` in ``csrc/frugal_tick.cuh``)
-  built for the host with g++; the committed golden rounds; and the
+  scatter pair (``interpret=None`` off a TPU), on rounds of distinct lanes
+  and on batches of event runs (each lane's events adjacent, split into
+  rounds for JAX); the run kernel's own arithmetic
+  (``ft_run_lane_events`` in ``csrc/frugal_tick.cuh``) built for the host
+  with g++; the committed golden rounds and run batch; and the
   ``QuantileFleet`` event API (per-lane clock, ``tick_lanes``,
   ``tick_lanes_sparse``, ``grow_groups``, ``estimate``) vs the JAX facade.
-* Card (marker ``cuda``, skipped without a CUDA device): the scatter
-  kernel vs its plain version on the card, pads on one lane, in-place
-  updates, and the golden rounds.
+* Card (marker ``cuda``, skipped without a CUDA device): the run kernel
+  vs its plain version on the card (rounds and run batches), pads on one
+  lane, in-place updates, the golden rounds and run batch, and an
+  ``SLOFleet`` of 10^4 routes vs one on the CPU.
 
 Tolerance everywhere: bit-exact (float32 compared as int32 bit patterns,
 clocks compared exactly). JAX is imported inside the tests that use it:
@@ -39,6 +42,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src", "repro_torch", "kernels", "csrc")
 L, K, ROUNDS = 4099, 300, 3
 G_OFFSET = 2 ** 31 - 1000          # g_offset + lane wraps for high lanes
+RUN_K = 600                        # a run batch's slots (longest run ~100)
 
 
 def bits(x):
@@ -142,6 +146,58 @@ def test_cpu_tensors_run_the_plain_version_without_launching():
     assert tkernel.scatter_launch_count == before
 
 
+# ------------------------------------------------ run batches vs JAX
+MASKS = ["mask", "mask=None"]
+
+
+def run_inputs(prog, seed, masked):
+    """(planes, ticks, quantile, port batch, JAX rounds) of a run batch.
+    With a mask, the port's mask-0 slots carry finite items (the kernel and
+    the plain version force them to NaN; JAX needs NaN there); without
+    one, the port gets ``mask=None`` and JAX the mask of non-NaN items."""
+    planes, ticks, quantile, (lanes, items, mask), pad_lane = \
+        golden.run_case(prog, L, RUN_K, seed)
+    assert golden.run_lengths(lanes).max() >= 64
+    if masked:
+        port = (lanes, np.where(mask == 0, np.float32(123.0), items), mask)
+    else:
+        port = (lanes, items, None)
+        mask = (~np.isnan(items)).astype(np.int32)
+    rounds = golden.run_rounds(lanes, items, mask, pad_lane)
+    return planes, ticks, quantile, port, rounds
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=MASKS)
+@pytest.mark.parametrize("tprog", PROGS, ids=IDS)
+def test_run_batch_matches_jax_rounds(tprog, masked):
+    planes, ticks, quantile, (lanes, items, mask), rounds = run_inputs(
+        tprog, 31, masked)
+    want_p, want_t = jax_rounds(tprog.family, planes, ticks, quantile,
+                                rounds, -77, G_OFFSET)[-1]
+    before = tkernel.scatter_launch_count
+    ps, tk = tops.frugal_update_sparse(
+        torch.from_numpy(lanes), torch.from_numpy(items),
+        None if mask is None else torch.from_numpy(mask),
+        tuple(torch.from_numpy(p) for p in planes), torch.from_numpy(ticks),
+        torch.from_numpy(quantile), -77, program=tprog, g_offset=G_OFFSET)
+    assert tkernel.scatter_launch_count == before
+    assert_bits_equal(ps, want_p, tprog.family)
+    np.testing.assert_array_equal(tk.numpy(), want_t)
+
+
+def test_run_ranks_and_plain_version_refuse_lanes_out_of_range():
+    lanes = torch.tensor([4, 4, 1, 7, 7, 7, 4], dtype=torch.int32)
+    assert tkernel.run_ranks(lanes).tolist() == [0, 1, 0, 0, 1, 2, 0]
+    prog = tprogram.make_program("2u")
+    planes = (torch.zeros(8), torch.ones(8), torch.ones(8))
+    ticks = torch.zeros(8, dtype=torch.int32)
+    for bad in (-1, 8):
+        with pytest.raises(ValueError, match="lie in"):
+            tkernel.frugal_program_scatter_reference(
+                prog, torch.tensor([2, bad], dtype=torch.int32),
+                torch.ones(2), None, planes, ticks, torch.tensor([0.5]), 0)
+
+
 # ----------------------------------------------------------------- golden
 @pytest.fixture(scope="module")
 def golden_file():
@@ -161,7 +217,18 @@ def test_golden_sparse_rounds_plain_version(golden_file, prog):
     assert_bits_equal(ps + (tk,), want, prog.family)
 
 
-# ------------------------------------- the per-event body, built on CPU
+@pytest.mark.parametrize("prog", PROGS, ids=IDS)
+def test_golden_run_batch_plain_version(golden_file, prog):
+    ps, tk = golden.runs_start(golden_file, prog, torch.from_numpy)
+    ps, tk = tkernel.frugal_program_scatter(
+        prog, *golden.runs_batch(golden_file, torch.from_numpy), ps, tk,
+        torch.from_numpy(golden_file["sparse/quantile"]),
+        golden.COUNTER_SEED, g_offset=golden.SPARSE_G_OFFSET)
+    assert_bits_equal(ps + (tk,), golden.runs_final(golden_file, prog),
+                      prog.family)
+
+
+# ------------------------------------------- the run body, built on CPU
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     gxx = shutil.which("g++")
@@ -182,14 +249,16 @@ def host_lib(tmp_path_factory):
 
 def host_scatter(lib, prog, planes, ticks, quantile, lanes, items, mask,
                  seed, g_offset):
-    """One round through the host build of the scatter kernel, in place on
-    the numpy ``planes`` and ``ticks``."""
+    """One batch (a round or runs) through the host build of the run
+    kernel, in place on the numpy ``planes`` and ``ticks``; ``mask`` may
+    be None."""
     q = np.ascontiguousarray(np.atleast_1d(np.asarray(quantile, np.float32)))
     ptrs = [p.ctypes.data for p in planes] + [None] * (6 - len(planes))
     sc = prog.scalar_values() + (0, 0)
     rc = lib.ft_host_scatter(
         tkernel.FAMILY_IDS[prog.kernel_family], lanes.ctypes.data,
-        items.ctypes.data, mask.ctypes.data, q.ctypes.data, int(q.size > 1),
+        items.ctypes.data, None if mask is None else mask.ctypes.data,
+        q.ctypes.data, int(q.size > 1),
         *ptrs, ticks.ctypes.data, lanes.size, ticks.size, seed,
         np.int32(g_offset), sc[0], sc[1])
     assert rc == 0
@@ -212,17 +281,31 @@ def test_host_scatter_matches_jax(host_lib, tprog, scalar_q):
         np.testing.assert_array_equal(ticks, wt)
 
 
+@pytest.mark.parametrize("masked", [True, False], ids=MASKS)
+@pytest.mark.parametrize("tprog", PROGS, ids=IDS)
+def test_host_run_batch_matches_jax_rounds(host_lib, tprog, masked):
+    planes, ticks, quantile, (lanes, items, mask), rounds = run_inputs(
+        tprog, 32, masked)
+    want_p, want_t = jax_rounds(tprog.family, planes, ticks, quantile,
+                                rounds, 4321, G_OFFSET)[-1]
+    planes = [np.ascontiguousarray(p) for p in planes]
+    host_scatter(host_lib, tprog, planes, ticks, quantile, lanes, items,
+                 mask, 4321, G_OFFSET)
+    assert_bits_equal(planes, want_p, tprog.family)
+    np.testing.assert_array_equal(ticks, want_t)
+
+
 def test_host_scatter_skips_lanes_out_of_range(host_lib):
     prog = tprogram.make_program("2u")
     planes = [np.zeros(8, np.float32), np.ones(8, np.float32),
               np.ones(8, np.float32)]
     ticks = np.zeros(8, np.int32)
-    lanes = np.asarray([-1, 8, 3], np.int32)
-    items = np.asarray([5.0, 5.0, 5.0], np.float32)
-    mask = np.ones(3, np.int32)
+    lanes = np.asarray([-1, -1, 8, 3, 3], np.int32)
+    items = np.full(5, 5.0, np.float32)
+    mask = np.ones(5, np.int32)
     host_scatter(host_lib, prog, planes, ticks, 0.5, lanes, items, mask, 0,
                  0)
-    np.testing.assert_array_equal(ticks, [0, 0, 0, 1, 0, 0, 0, 0])
+    np.testing.assert_array_equal(ticks, [0, 0, 0, 2, 0, 0, 0, 0])
 
 
 # ------------------------------------------------ the fleet's event API
@@ -483,6 +566,84 @@ def test_card_scatter_matches_golden_file(card, golden_file):
                 golden.COUNTER_SEED, g_offset=golden.SPARSE_G_OFFSET)
         assert_bits_equal(ps + (tk,), golden.sparse_final(golden_file, prog),
                           prog.family)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_k", [32, 1024])
+@pytest.mark.parametrize("masked", [True, False], ids=MASKS)
+@pytest.mark.parametrize("prog", PROGS, ids=IDS)
+def test_card_run_batch_matches_plain_version(card, prog, masked, block_k):
+    """A batch of runs at 65,535 lanes (longest run several hundred), in
+    one launch, in place, bit-identical to the plain version's rounds."""
+    planes, ticks, quantile, (lanes, items, mask), _ = golden.run_case(
+        prog, 65535, 4096, 13)
+    assert golden.run_lengths(lanes).max() >= 256
+    if masked:
+        items = np.where(mask == 0, np.float32(123.0), items)
+    else:
+        mask = None
+    ev = [None if x is None else torch.from_numpy(x).to(card)
+          for x in (lanes, items, mask)]
+    kp, kt, q = to_card(card, planes, ticks, quantile)
+    rp, rt, _ = to_card(card, planes, ticks, quantile)
+    ptrs = [p.data_ptr() for p in kp] + [kt.data_ptr()]
+    before = tkernel.scatter_launch_count
+    kp, kt = tops.frugal_update_sparse(*ev, kp, kt, q, 17, program=prog,
+                                       g_offset=G_OFFSET, donate=True,
+                                       block_k=block_k)
+    assert tkernel.scatter_launch_count - before == 1
+    rp, rt = tkernel.frugal_program_scatter_reference(
+        prog, *ev, rp, rt, q, 17, g_offset=G_OFFSET)
+    torch.cuda.synchronize()
+    assert [p.data_ptr() for p in kp] + [kt.data_ptr()] == ptrs
+    assert_bits_equal(kp + (kt,), rp + (rt,), prog.family)
+
+
+@pytest.mark.cuda
+def test_card_run_batch_matches_golden_file(card, golden_file):
+    def conv(x):
+        return torch.from_numpy(x).to(card)
+
+    for prog in PROGS:
+        ps, tk = golden.runs_start(golden_file, prog, conv)
+        ps, tk = tkernel.frugal_program_scatter(
+            prog, *golden.runs_batch(golden_file, conv), ps, tk,
+            conv(golden_file["sparse/quantile"]), golden.COUNTER_SEED,
+            g_offset=golden.SPARSE_G_OFFSET)
+        assert_bits_equal(ps + (tk,), golden.runs_final(golden_file, prog),
+                          prog.family)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("windowed", [False, True], ids=["2u", "2u-decay"])
+def test_card_slo_fleet_matches_cpu_fleet(card, windowed):
+    """An SLOFleet of 10^4 routes x 3 metrics (the sparse branch): one run
+    kernel launch per flush, and the same planes and clocks as on the
+    CPU."""
+    from repro_torch.serve import DEFAULT_METRICS, SLOFleet
+
+    metrics = [m for m, _ in DEFAULT_METRICS]
+    rng = np.random.default_rng(4)
+    names = [f"r{i}" for i in range(10 ** 4)]
+    fleets = [SLOFleet(seed=2, capacity=64, windowed=windowed,
+                       decay_half_life=64, device=d) for d in (card, "cpu")]
+    for fl in fleets:
+        fl.ensure_routes(names)
+    before = tkernel.scatter_launch_count
+    for _ in range(4):
+        routes = (rng.zipf(1.2, 4096) - 1) % len(names)
+        ms = rng.integers(0, len(metrics), 4096)
+        vals = rng.lognormal(3.0, 1.0, 4096)
+        vals[rng.random(4096) < 0.02] = np.nan
+        for fl in fleets:
+            for r, m, v in zip(routes, ms, vals):
+                fl.observe(names[r], metrics[m], float(v))
+            fl.flush()
+    assert tkernel.scatter_launch_count - before == 4
+    for name in ("_m", "_step", "_sign", "_ticks"):
+        np.testing.assert_array_equal(bits(getattr(fleets[0], name)),
+                                      bits(getattr(fleets[1], name)),
+                                      err_msg=name)
 
 
 @pytest.mark.cuda
