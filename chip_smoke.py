@@ -50,7 +50,21 @@ each or more:
      SLO-sized flush of 4096 events in runs at L = 3 x 2^20, with its
      longest run and the serial-chain floor, the longest run times one
      tick's dependent latency measured on one thread), as the
-     {"kernels": [...]} line.
+     {"kernels": [...]} line;
+  8. resilience on the main path, at phase 5's width with health policy
+     "quarantine" and chunks made on the card from a generator seeded per
+     chunk index: (a) a seeded stream kill in ingest_stream and a resume
+     with skip_items; (b) a bit flip (sign plane, bit 22, a seeded lane)
+     in the fourth chunk, caught by health() and healed by check_health();
+     (c) a format-4 checkpoint after 4 chunks, restored on the card and
+     continued; (d) the JAX package's committed checkpoints
+     (tests/data/jax_checkpoints) restored on the card and continued to
+     their golden words; (e) the SLO fleet of phase 6's size: a flush,
+     check_health(), a checkpoint with events pending, a restore and 4
+     more flushes. Each result bit-identical to the uninterrupted run (the
+     healed lane to a lane created at its cursor); save, restore and
+     health-scan times, bytes on disk, and the phase's dense and run
+     kernel launches.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -60,9 +74,11 @@ import importlib.util
 import itertools
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1037,6 +1053,278 @@ def phase_scatter_timing(torch, gm, launches):
     return entries
 
 
+# --------------------------------------------------------------- phase 8
+RES_KILL_SEED, RES_FLIP_SEED, RES_CHUNK_SEED = 12, 8, 1000
+RES_SLO_FLUSHES = 6        # 1, check_health, 1 pending, checkpoint, 4
+
+
+def same_state(torch, a, b, skip_lane=None) -> bool:
+    """Two fleets hold the same planes (int32 views) and cursor; with
+    ``skip_lane``, every lane but that one."""
+    if tuple(a.cursor) != tuple(b.cursor):
+        return False
+    for x, y in zip(a.state.planes(), b.state.planes()):
+        diff = x.view(torch.int32) != y.view(torch.int32)
+        if skip_lane is not None:
+            diff[skip_lane] = False
+        if bool(diff.any()):
+            return False
+    return True
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def timed(torch, fn):
+    """(result, host ms) of ``fn`` between two synchronizations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_resilience(torch, gm, card):
+    """Phase 8; returns (dense launches, run kernel launches) of the
+    phase."""
+    import numpy as np
+    from repro_torch.api import FleetSpec, QuantileFleet, StreamCursor
+    from repro_torch.core.program import make_program
+    from repro_torch.kernels import frugal_update as fk
+    from repro_torch.resilience import Fault, FaultPlan, chaos
+    from repro_torch.serve import DEFAULT_METRICS, SLOFleet
+    from repro_torch.train import checkpoint as ckpt
+
+    dev = torch.device("cuda")
+    q = len(QS)
+    spec = FleetSpec(num_groups=G_FULL, quantiles=QS, program="2u",
+                     chunk_t=CHUNK_T, health="quarantine")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(RES_CHUNK_SEED - 1)
+    scale = torch.exp(torch.empty(G_FULL, device=dev).uniform_(
+        3.0, 8.0, generator=gen))
+
+    def chunk(i):
+        """Chunk i of the stream, made again identically on every call."""
+        g = torch.Generator(device=dev)
+        g.manual_seed(RES_CHUNK_SEED + i)
+        return torch.empty((CHUNK_T, G_FULL), device=dev).log_normal_(
+            0.0, 1.0, generator=g).mul_(scale)
+
+    def stream(lo, hi):
+        return (chunk(i) for i in range(lo, hi))
+
+    def create():
+        return QuantileFleet.create(spec, seed=0)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    torch.cuda.synchronize()
+    fk.launch_count = fk.scatter_launch_count = 0
+    try:
+        ref4 = create().ingest_stream(stream(0, 4))
+        ref = ref4.ingest_stream(stream(4, N_CHUNKS))
+
+        # (a) a seeded kill, resumed from err.fleet with skip_items.
+        plan = FaultPlan.seeded_kill(RES_KILL_SEED, N_CHUNKS)
+        kill_at = plan.faults[0].at
+        try:
+            with chaos.armed(plan):
+                create().ingest_stream(stream(0, N_CHUNKS))
+            fail("resilience (a): the armed kill did not fire")
+        except chaos.StreamInterrupted as err:
+            interrupted = err
+        if interrupted.items_applied != kill_at * CHUNK_T \
+                or interrupted.fleet.cursor.t_offset != kill_at * CHUNK_T:
+            fail(f"resilience (a): killed after "
+                 f"{interrupted.items_applied} items, expected "
+                 f"{kill_at * CHUNK_T}")
+        resumed = interrupted.fleet.ingest_stream(
+            stream(0, N_CHUNKS), skip_items=interrupted.items_applied)
+        if not same_state(torch, resumed, ref):
+            fail("resilience (a): the resumed fleet differs from the "
+                 "uninterrupted run")
+        say("resilience", check="a", kill_plan_seed=RES_KILL_SEED,
+            killed_after_chunks=kill_at,
+            items_applied=interrupted.items_applied,
+            result="resumed bit-identical to the uninterrupted run")
+
+        # (b) a sign-plane bit flip in chunk 4, caught and healed.
+        rng = np.random.default_rng(RES_FLIP_SEED)
+        lane = int(rng.integers(0, spec.num_lanes))
+        at = 3 * CHUNK_T + int(rng.integers(0, CHUNK_T))
+        plan = FaultPlan(faults=[Fault(kind="flip", at=at, plane=2,
+                                       lane=lane, bit=22)])
+        with chaos.armed(plan):
+            flipped = create().ingest_stream(stream(0, 4))
+        if plan.fired() != 1:
+            fail(f"resilience (b): {plan.fired()} flips fired, expected 1")
+        scans = []
+        for _ in range(3):
+            rep, ms = timed(torch, flipped.health)
+            scans.append(ms)
+        if rep.lane_ids != (lane,):
+            fail(f"resilience (b): health() flagged {rep.lane_ids[:8]} "
+                 f"({rep.corrupt_lanes} lanes), expected ({lane},)")
+        (healed, rep), check_ms = timed(torch, flipped.check_health)
+        if rep.quarantined != 1 or not healed.health().healthy:
+            fail(f"resilience (b): check_health() quarantined "
+                 f"{rep.quarantined} lane(s); {healed.health()}")
+        healed = healed.ingest_stream(stream(4, N_CHUNKS))
+        if not same_state(torch, healed, ref, skip_lane=lane):
+            fail("resilience (b): a lane other than the healed one differs "
+                 "from the uninterrupted run")
+        group, qi = divmod(lane, q)
+        fresh = QuantileFleet.create(
+            FleetSpec(num_groups=1, quantiles=QS, program="2u",
+                      chunk_t=CHUNK_T),
+            cursor=StreamCursor.create(seed=0, t_offset=4 * CHUNK_T,
+                                       g_offset=group * q))
+        fresh = fresh.ingest_stream(
+            chunk(i)[:, group:group + 1].contiguous()
+            for i in range(4, N_CHUNKS))
+        for f, a, b in zip(spec.program.layout.plane_fields,
+                           healed.state.planes(), fresh.state.planes()):
+            if not torch.equal(a[lane].view(torch.int32),
+                               b[qi].view(torch.int32)):
+                fail(f"resilience (b): healed lane {lane} plane {f} "
+                     "differs from a lane created at its cursor")
+        say("resilience", check="b", lanes=spec.num_lanes, flipped_lane=lane,
+            flip_tick=at, plane="sign", bit=22, flagged=len(rep.lane_ids),
+            quarantined=rep.quarantined,
+            result=f"healed lane = a lane created at tick {4 * CHUNK_T}; "
+                   "every other lane bit-identical to the uninterrupted run")
+        say("resilience", health_scan_ms=",".join(f"{v:.3f}" for v in scans),
+            check_health_ms=f"{check_ms:.3f}", lanes=spec.num_lanes,
+            card=card, note="host clock between synchronizations")
+
+        # (c) a format-4 checkpoint after 4 chunks, restored on the card.
+        ckdir = Path(work) / "dense"
+        _, save_ms = timed(torch, lambda: ref4.checkpoint(str(ckdir), step=4))
+        restored, restore_ms = timed(
+            torch, lambda: QuantileFleet.restore(str(ckdir), spec))
+        manifest = ckpt.read_manifest(str(ckdir))
+        if restored.device.type != "cuda" or manifest["format"] != 4:
+            fail(f"resilience (c): restored on {restored.device}, format "
+                 f"{manifest['format']}")
+        if not same_state(torch, restored, ref4):
+            fail("resilience (c): the restored fleet differs from the "
+                 "saved one")
+        if not same_state(torch, restored.ingest_stream(
+                stream(4, N_CHUNKS)), ref):
+            fail("resilience (c): the restored fleet continued differs "
+                 "from the uninterrupted run")
+        say("resilience", check="c", step=4, leaves=manifest["num_leaves"],
+            shapes=manifest["shapes"], dtypes=",".join(manifest["dtypes"]),
+            result="restored and continued bit-identical to the "
+                   "uninterrupted run")
+        say("resilience", checkpoint_save_ms=f"{save_ms:.1f}",
+            restore_ms=f"{restore_ms:.1f}", bytes_on_disk=dir_bytes(ckdir),
+            lanes=spec.num_lanes, card=card,
+            note="save: D2H + pack + npz + fsync + CRC32; restore: read + "
+                 "CRC32 + H2D + unpack; host clock")
+        del ref4, resumed, flipped, healed, restored, interrupted
+
+        # (d) the JAX package's committed checkpoints on the card.
+        data = np.load(GOLDEN)
+        for family, kw in gm.CKPT_PROGRAMS.items():
+            copy = shutil.copytree(Path(gm.CKPT_ROOT) / family,
+                                   Path(work) / ("jax-" + family))
+            gspec = FleetSpec(num_groups=gm.CKPT_G, quantiles=gm.QUANTILES,
+                              chunk_t=gm.CKPT_CHUNK_T,
+                              program=make_program(family, **kw))
+            fleet = QuantileFleet.restore(str(copy), gspec).ingest(
+                gm.ckpt_items(family, 1))
+            packed = fleet.state.packed()
+            for name in packed._fields:
+                x = getattr(packed, name)
+                if x is not None and not np.array_equal(
+                        x.cpu().numpy().view(np.int32),
+                        data[f"ckpt/{family}/{name}"].view(np.int32)):
+                    fail(f"resilience (d): {family} {name} differs from "
+                         "the JAX package's continuation")
+            if list(fleet.cursor) != data[f"ckpt/{family}/cursor"].tolist():
+                fail(f"resilience (d): {family} cursor {fleet.cursor}")
+        metrics = [m for m, _ in DEFAULT_METRICS]
+        copy = shutil.copytree(Path(gm.CKPT_ROOT) / "slo",
+                               Path(work) / "jax-slo")
+        st, _ = ckpt.restore_checkpoint(
+            str(copy), SLOFleet(capacity=1).checkpoint_template())
+        slo = SLOFleet.from_checkpoint_state(st)
+        gm.feed_slo(slo, metrics, gm.slo_continuation(data))
+        for name in ("m", "step", "sign", "ticks"):
+            if not np.array_equal(
+                    getattr(slo, "_" + name).cpu().numpy().view(np.int32),
+                    data[f"ckpt/slo/{name}"].view(np.int32)):
+                fail(f"resilience (d): SLO {name} differs from the JAX "
+                     "package's continuation")
+        say("resilience", check="d",
+            checkpoints=",".join(list(gm.CKPT_PROGRAMS) + ["slo"]),
+            result="JAX-written checkpoints restored on the card and "
+                   "continued bit-identical to the JAX package")
+
+        # (e) the SLO fleet at 10^6 routes through a checkpoint.
+        rng = np.random.default_rng(5)
+        names = [f"route-{i}" for i in range(SLO_ROUTES)]
+        batches = [((rng.zipf(ZIPF_A, SLO_EVENTS) - 1) % SLO_ROUTES,
+                    rng.integers(0, len(metrics), SLO_EVENTS),
+                    rng.lognormal(3.0, 1.0, SLO_EVENTS))
+                   for _ in range(RES_SLO_FLUSHES)]
+
+        def observe(fleet, batch):
+            for ri, mi, vi in zip(*(x.tolist() for x in batch)):
+                fleet.observe(names[ri], metrics[mi], vi)
+
+        whole, cut = SLOFleet(seed=0, capacity=64), \
+            SLOFleet(seed=0, capacity=64)
+        for fl in (whole, cut):
+            fl.ensure_routes(names)
+        for batch in batches:
+            observe(whole, batch)
+            whole.flush()
+        observe(cut, batches[0])
+        cut.flush()
+        rep = cut.check_health()
+        observe(cut, batches[1])            # pending at the checkpoint
+        slo_dir = Path(work) / "slo"
+        _, slo_save_ms = timed(torch, lambda: ckpt.save_checkpoint(
+            str(slo_dir), 1, cut.checkpoint_state()))
+        template = cut.checkpoint_template()
+        del cut
+        cut, slo_restore_ms = timed(
+            torch, lambda: SLOFleet.from_checkpoint_state(
+                ckpt.restore_checkpoint(str(slo_dir), template)[0]))
+        for batch in batches[2:]:
+            observe(cut, batch)
+            cut.flush()
+        if not rep.healthy or cut.routes() != whole.routes():
+            fail(f"resilience (e): {rep}; routes differ")
+        for name in ("_m", "_step", "_sign", "_ticks"):
+            if not torch.equal(getattr(cut, name), getattr(whole, name)):
+                fail(f"resilience (e): SLO {name} differs from the "
+                     "uninterrupted fleet")
+        say("resilience", check="e", routes=SLO_ROUTES,
+            lanes=whole._cap_routes * len(metrics), flushes=len(batches),
+            events_per_flush=SLO_EVENTS, health=str(rep),
+            result="restored and flushed 4 more times bit-identical to "
+                   "the uninterrupted fleet")
+        say("resilience", slo_checkpoint_save_ms=f"{slo_save_ms:.1f}",
+            slo_restore_ms=f"{slo_restore_ms:.1f}",
+            slo_bytes_on_disk=dir_bytes(slo_dir), card=card,
+            note="save includes the pending flush and the route table's "
+                 "JSON; host clock")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = (fk.launch_count, fk.scatter_launch_count)
+    if min(launches) == 0:
+        fail(f"resilience: the phase launched the dense / run kernels "
+             f"{launches} times")
+    say("resilience", dense_kernel_launches=launches[0],
+        run_kernel_launches=launches[1])
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -1061,6 +1349,7 @@ def main() -> None:
     sparse_launches = phase_sparse_path(torch)
     entries = phase_timing(torch, loops, launches)
     entries += phase_scatter_timing(torch, gm, sparse_launches)
+    phase_resilience(torch, gm, card)
     torch.cuda.synchronize()
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("JAX or the JAX package was imported")

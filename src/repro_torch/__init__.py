@@ -6,7 +6,9 @@ clocks, ``serve.SLOFleet``) run on an NVIDIA Hopper card through two
 hand-written CUDA kernels (``kernels/csrc/frugal_update.cu``,
 ``kernels/csrc/frugal_scatter.cu``); every module keeps a plain PyTorch
 version of the same arithmetic, which the CPU tests hold bit-for-bit
-against the JAX package.
+against the JAX package. Fleets survive faults as the JAX package's do:
+seeded fault plans and lane health (``resilience``), and format-4
+checkpoints (``train.checkpoint``) that either package restores.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (``configs.platform.resolve_device``).

@@ -12,12 +12,20 @@ Event-stream lanes (a per-lane clock, ``per_lane_clock=True``):
     fleet = fleet.tick_lanes(items)                     # [L], NaN = none
     fleet = fleet.tick_lanes_sparse(lanes, items)       # K events, O(K)
 
+Health and checkpoints:
+
+    fleet.health()                                      # scan only
+    fleet, report = fleet.check_health()                # apply spec.health
+    fleet.checkpoint(ckpt_dir, step=n)                  # format 4
+    fleet = QuantileFleet.restore(ckpt_dir, spec)       # newest verified
+
 Functional like the JAX package's facade: every ingest returns a new
 fleet whose cursor has advanced (``tick_lanes_sparse(donate=True)`` is
 the one call that updates this fleet's tensors in place). The fleet's
 tensors live on one device, chosen at creation (``device=None`` is the
-card); later calls move items there. ``from_jax_state`` / ``to_numpy_state`` carry a fleet's exact state
-between this package and the JAX package.
+card); later calls move items there. Checkpoints are the JAX package's
+format, so either package restores the other's; ``from_jax_state`` /
+``to_numpy_state`` carry a fleet's exact state across in memory.
 """
 from __future__ import annotations
 
@@ -32,8 +40,14 @@ from repro_torch.core import rng as crng
 from repro_torch.core.sketch import GroupedQuantileSketch, PackedSketchState
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.resilience import chaos
+from repro_torch.resilience import health as health_mod
+from repro_torch.train import checkpoint as ckpt
 
 from .spec import FleetSpec, StreamCursor
+
+# The manifest's writer-topology stanza: the port places a fleet on one
+# device (the JAX package's TopologySpec().describe()).
+_SINGLE_TOPOLOGY = {"data": 1, "lanes": 1, "placement": "single"}
 
 
 def _lane_tick(program, planes, ticks, q, items, seed, g_offset, scalars):
@@ -128,6 +142,38 @@ class QuantileFleet:
     def memory_words(self) -> int:
         """Persistent words per lane: 1 (1U) or 2 (packed 2U) per plane."""
         return self.spec.memory_words()
+
+    # ---------------------------------------------------------------- health
+    def health(self) -> health_mod.HealthReport:
+        """Scan-only lane health report: every lane's planes against the
+        spec program's declared StateLayout invariants (finite heads, exact
+        ±1 signs, pack-round-trippable steps). Never mutates or raises;
+        ``check_health`` applies the policy."""
+        return health_mod.report_for(self.spec.program, self.state.planes(),
+                                     self.spec.health)
+
+    def check_health(self) -> Tuple["QuantileFleet",
+                                    health_mod.HealthReport]:
+        """Scan lane health and apply ``spec.health``; returns (fleet,
+        report).
+
+        "raise"      — LaneCorruptionError if any lane is corrupt;
+        "quarantine" — a new fleet whose corrupt lanes hold the fresh lane
+                       state (future ticks bit-exact with a lane created
+                       at the current cursor), healthy lanes untouched;
+        "ignore"     — report only.
+        """
+        prog, planes = self.spec.program, self.state.planes()
+        mask = health_mod.validate_planes(prog, planes)
+        rep = health_mod.report_of(mask, self.spec.health)
+        if rep.healthy or self.spec.health == "ignore":
+            return self, rep
+        if self.spec.health == "raise":
+            raise health_mod.LaneCorruptionError(str(rep))
+        healed = self.state.with_planes(
+            health_mod.heal_planes(prog, planes, mask))
+        rep = dataclasses.replace(rep, quarantined=rep.corrupt_lanes)
+        return dataclasses.replace(self, state=healed), rep
 
     # ---------------------------------------------------------------- ingest
     def _require_scalar_clock(self, what: str):
@@ -339,6 +385,106 @@ class QuantileFleet:
             return plane
         return plane[:, self.spec.quantiles.index(float(quantile))]
 
+    # -------------------------------------------------------- serialization
+    def checkpoint_state(self) -> dict:
+        """Checkpoint tree: the lane sketch (stored packed, 1-2 words per
+        lane) and the cursor as int32 leaves (0-d, or [L] for a per-lane
+        clock), the JAX package's layout leaf for leaf. The tensors are
+        the fleet's own (``tick_lanes_sparse(donate=True)`` updates them in
+        place)."""
+        cur = self.cursor
+        t_off = cur.t_offset if cur.per_lane \
+            else np.asarray(cur.t_offset, np.int32)
+        return {"sketch": self.state,
+                "cursor": StreamCursor(seed=np.asarray(cur.seed, np.int32),
+                                       t_offset=t_off,
+                                       g_offset=np.asarray(cur.g_offset,
+                                                           np.int32))}
+
+    def checkpoint_template(self) -> dict:
+        """Structure-only ``like`` tree for
+        ``train.checkpoint.restore_checkpoint``."""
+        return self.template_for(self.spec,
+                                 per_lane_clock=self.cursor.per_lane)
+
+    @staticmethod
+    def template_for(spec: FleetSpec, per_lane_clock: bool = False) -> dict:
+        """``checkpoint_template`` from a spec alone: shape-only leaves,
+        no fleet and no allocation."""
+        lanes = spec.num_lanes
+        f32 = ckpt.LeafSpec((lanes,), np.float32)
+        i32s = ckpt.LeafSpec((), np.int32)
+        m2 = f32 if spec.program.layout.has_shadow else None
+        if spec.algo == "1u":
+            sk = GroupedQuantileSketch(m=f32, step=None, sign=None,
+                                       quantile=f32, m2=m2, algo="1u",
+                                       drift=spec.drift)
+        else:
+            sk = GroupedQuantileSketch(m=f32, step=f32, sign=f32,
+                                       quantile=f32, m2=m2, step2=m2,
+                                       sign2=m2, algo="2u",
+                                       drift=spec.drift)
+        t_off = ckpt.LeafSpec((lanes,), np.int32) if per_lane_clock \
+            else i32s
+        return {"sketch": sk,
+                "cursor": StreamCursor(seed=i32s, t_offset=t_off,
+                                       g_offset=i32s)}
+
+    @classmethod
+    def from_checkpoint_state(cls, state: dict,
+                              spec: FleetSpec) -> "QuantileFleet":
+        """A fleet from a checkpoint tree (``{"sketch": sketch, "cursor":
+        (seed, t_offset, g_offset)}``), on the sketch's device. The sketch
+        must match ``spec``'s lane count and program layout; the spec, not
+        the file, owns drift parameters going forward."""
+        sk = state["sketch"]
+        if sk.num_groups != spec.num_lanes:
+            raise ValueError(
+                f"checkpoint holds {sk.num_groups} lanes but spec "
+                f"{spec.num_groups}x{spec.num_quantiles} expects "
+                f"{spec.num_lanes}")
+        if sk.algo != spec.algo:
+            raise ValueError(f"checkpoint holds a {sk.algo} sketch but spec "
+                             f"program {spec.program.family!r} is "
+                             f"{spec.algo}")
+        if spec.program.layout.has_shadow != (sk.m2 is not None):
+            raise ValueError(
+                f"checkpoint {'has' if sk.m2 is not None else 'lacks'} a "
+                f"window shadow plane but spec.drift is {spec.drift!r}")
+        if sk.drift != spec.drift:
+            sk = dataclasses.replace(sk, drift=spec.drift)
+        seed, t_off, g_off = state["cursor"]
+        if np.ndim(t_off):
+            if not isinstance(t_off, torch.Tensor):
+                t_off = torch.from_numpy(np.array(t_off, np.int32))
+            t_off = t_off.to(device=sk.device, dtype=torch.int32)
+            if t_off.shape[0] != spec.num_lanes:
+                raise ValueError(f"per-lane cursor holds {t_off.shape[0]} "
+                                 f"clocks, spec expects {spec.num_lanes}")
+        else:
+            t_off = int(t_off)
+        return cls(state=sk, cursor=StreamCursor.create(
+            seed=int(seed), t_offset=t_off, g_offset=int(g_off)), spec=spec)
+
+    def checkpoint(self, ckpt_dir: str, step: int, keep: int = 3) -> str:
+        """Write a committed, per-leaf-checksummed format-4 checkpoint
+        (``train.checkpoint``: restore verifies the CRCs, quarantines a
+        corrupt step and falls back to the newest intact one)."""
+        return ckpt.save_checkpoint(ckpt_dir, step, self.checkpoint_state(),
+                                    keep=keep, topology=_SINGLE_TOPOLOGY)
+
+    @classmethod
+    def restore(cls, ckpt_dir: str, spec: FleetSpec,
+                step: Optional[int] = None, per_lane_clock: bool = False,
+                device=None) -> "QuantileFleet":
+        """Load the newest committed checkpoint (or ``step``) into a fleet
+        on ``device`` (None: the card; raises where there is none). A
+        checkpoint the JAX package wrote restores the same way."""
+        like = cls.template_for(spec, per_lane_clock=per_lane_clock)
+        state, _ = ckpt.restore_checkpoint(ckpt_dir, like=like, step=step,
+                                           device=device)
+        return cls.from_checkpoint_state(state, spec)
+
     # ------------------------------------------------------- carry across
     def to_numpy_state(self) -> Tuple[PackedSketchState, StreamCursor]:
         """(packed payload as numpy arrays, cursor): the JAX package's
@@ -362,24 +508,8 @@ def from_jax_state(spec: FleetSpec, packed, cursor,
     (or tensors); ``cursor`` is the JAX ``StreamCursor`` as (seed,
     t_offset, g_offset): ints, with ``t_offset`` an [L] int32 array for a
     per-lane (event-stream) fleet. The payload must match ``spec``'s lane
-    count and program layout.
+    count and program layout (``QuantileFleet.from_checkpoint_state``).
     """
-    sk = GroupedQuantileSketch.from_packed(packed, drift=spec.drift,
-                                           device=device)
-    if sk.num_groups != spec.num_lanes:
-        raise ValueError(f"payload holds {sk.num_groups} lanes but spec "
-                         f"{spec.num_groups}x{spec.num_quantiles} expects "
-                         f"{spec.num_lanes}")
-    if sk.algo != spec.algo:
-        raise ValueError(f"payload is a {sk.algo} sketch but spec program "
-                         f"{spec.program.family!r} is {spec.algo}")
-    seed, t_offset, g_offset = cursor
-    if np.ndim(t_offset):
-        t_offset = torch.from_numpy(np.array(t_offset, np.int32)).to(
-            sk.device)
-        if t_offset.shape[0] != spec.num_lanes:
-            raise ValueError(f"per-lane cursor holds {t_offset.shape[0]} "
-                             f"clocks, spec expects {spec.num_lanes}")
-    return QuantileFleet(state=sk, cursor=StreamCursor.create(
-        seed=int(seed), t_offset=t_offset, g_offset=int(g_offset)),
-        spec=spec)
+    sk = GroupedQuantileSketch.from_packed(packed, device=device)
+    return QuantileFleet.from_checkpoint_state(
+        {"sketch": sk, "cursor": cursor}, spec)

@@ -12,6 +12,7 @@ import torch
 from repro_torch.core import rng as crng
 from repro_torch.core.drift import DriftConfig
 from repro_torch.core.program import LaneProgram, make_program, program_for
+from repro_torch.resilience.health import HEALTH_POLICIES
 
 
 class StreamCursor(NamedTuple):
@@ -88,6 +89,9 @@ class FleetSpec:
     program    — the update rule: a LaneProgram or a registered family
                  name; owns algo and drift when given.
     topology   — placement; only the single device is ported (None).
+    health     — lane-corruption policy of QuantileFleet.check_health()
+                 (resilience.health.HEALTH_POLICIES): "raise", "quarantine"
+                 (re-initialize corrupt lanes) or "ignore" (report only).
     """
 
     num_groups: int
@@ -97,6 +101,7 @@ class FleetSpec:
     drift: Optional[DriftConfig] = None
     program: Optional[Union[str, LaneProgram]] = None
     topology: Optional[object] = None
+    health: str = "raise"
 
     def __post_init__(self):
         qs = tuple(float(q) for q in np.atleast_1d(np.asarray(self.quantiles,
@@ -113,6 +118,10 @@ class FleetSpec:
             raise ValueError(f"algo must be '1u' or '2u', got {self.algo!r}")
         if self.chunk_t <= 0:
             raise ValueError(f"chunk_t must be positive, got {self.chunk_t}")
+        if self.health not in HEALTH_POLICIES:
+            raise ValueError(
+                f"health must be one of {HEALTH_POLICIES}, got "
+                f"{self.health!r}")
         if self.topology is not None:
             raise NotImplementedError(
                 "only the single-device placement is ported; lane-sharded "

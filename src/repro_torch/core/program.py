@@ -37,6 +37,10 @@ from .drift import DriftConfig
 # from every ingest-time uniform (which key on the raw seed).
 _DP_SALT = int(np.int32(np.uint32(0x5DEECE66).view(np.int32)))
 
+# Plane-invariant domains resilience.health checks. Every registered layout
+# assigns one to each plane field (validate_program).
+_INVARIANT_DOMAINS = ("finite", "step", "sign")
+
 
 @dataclasses.dataclass(frozen=True)
 class StateLayout:
@@ -48,12 +52,18 @@ class StateLayout:
                    packed into one int32 word (core.packing).
     scalar_names — int32 operands beyond (seed, t_offset, g_offset).
     query_fields — estimate planes a read gathers.
+    invariants   — (field, domain) health declarations, one per plane
+                   field: 'finite' (estimate heads), 'step' (finite and
+                   value-round-trips through the packed word), 'sign'
+                   (exactly ±1). ``resilience.health.validate_planes``
+                   derives its corruption check from them.
     """
 
     plane_fields: Tuple[str, ...]
     packing: Tuple[Tuple[str, Optional[Tuple[str, str]]], ...]
     scalar_names: Tuple[str, ...] = ()
     query_fields: Tuple[str, ...] = ("m",)
+    invariants: Tuple[Tuple[str, str], ...] = ()
 
     def __post_init__(self):
         flat = []
@@ -69,6 +79,20 @@ class StateLayout:
             raise ValueError(
                 f"query_fields {self.query_fields} must be packing heads "
                 f"{self.heads}")
+        seen = set()
+        for field, domain in self.invariants:
+            if field not in self.plane_fields:
+                raise ValueError(
+                    f"invariant declared for unknown plane field {field!r} "
+                    f"(plane_fields {self.plane_fields})")
+            if domain not in _INVARIANT_DOMAINS:
+                raise ValueError(
+                    f"invariant domain {domain!r} for plane {field!r} is not "
+                    f"one of {_INVARIANT_DOMAINS}")
+            if field in seen:
+                raise ValueError(
+                    f"duplicate invariant declaration for plane {field!r}")
+            seen.add(field)
 
     @property
     def heads(self) -> Tuple[str, ...]:
@@ -254,20 +278,27 @@ def _trace_window(prog, planes, t_abs):
 
 
 # ----------------------------------------------------------------- registry
-_L_1U = StateLayout(plane_fields=("m",), packing=(("m", None),))
+_L_1U = StateLayout(plane_fields=("m",), packing=(("m", None),),
+                    invariants=(("m", "finite"),))
 _L_2U = StateLayout(plane_fields=("m", "step", "sign"),
-                    packing=(("m", ("step", "sign")),))
+                    packing=(("m", ("step", "sign")),),
+                    invariants=(("m", "finite"), ("step", "step"),
+                                ("sign", "sign")))
+# dataclasses.replace inherits _L_2U's invariants.
 _L_2U_DECAY = dataclasses.replace(_L_2U,
                                   scalar_names=("alpha_bits", "floor_bits"))
 _L_1U_WINDOW = StateLayout(plane_fields=("m", "m2"),
                            packing=(("m", None), ("m2", None)),
                            scalar_names=("window",),
-                           query_fields=("m", "m2"))
+                           query_fields=("m", "m2"),
+                           invariants=(("m", "finite"), ("m2", "finite")))
 _L_2U_WINDOW = StateLayout(
     plane_fields=("m", "step", "sign", "m2", "step2", "sign2"),
     packing=(("m", ("step", "sign")), ("m2", ("step2", "sign2"))),
     scalar_names=("window",),
-    query_fields=("m", "m2"))
+    query_fields=("m", "m2"),
+    invariants=(("m", "finite"), ("step", "step"), ("sign", "sign"),
+                ("m2", "finite"), ("step2", "step"), ("sign2", "sign")))
 
 
 def _refuse_params(family, **kw):
@@ -398,3 +429,92 @@ def test_instances() -> Tuple[LaneProgram, ...]:
         make_program("2u-window", window=96),
         make_program("2u-dp", epsilon=0.5),
     )
+
+
+# ------------------------------------------------------------------ validation
+def validate_program(prog: LaneProgram) -> None:
+    """Registration lint, the JAX package's ``validate_program`` on CPU
+    tensors: every plane declares an invariant domain (heads 'finite'),
+    the scalar slots resolve to ints, a smoke tick (one real item, one
+    NaN) keeps plane arity, shape and dtype, the words round-trip, and the
+    query and trace answer one value per lane. Raises AssertionError."""
+    layout = prog.layout
+    if prog.algo not in ("1u", "2u"):
+        raise AssertionError(f"{prog.family}: algo {prog.algo!r}")
+    inv = dict(layout.invariants)
+    missing_inv = [f for f in layout.plane_fields if f not in inv]
+    if missing_inv:
+        raise AssertionError(
+            f"{prog.family}: plane field(s) {missing_inv} declare no "
+            "invariant domain — add invariants=((field, domain), ...) to the "
+            "StateLayout so resilience.health.validate_planes covers them")
+    for f in layout.heads:
+        if inv[f] != "finite":
+            raise AssertionError(
+                f"{prog.family}: estimate head {f!r} must declare the "
+                f"'finite' invariant, not {inv[f]!r}")
+    vals = prog.scalar_values()
+    if len(vals) != len(layout.scalar_names):
+        raise AssertionError(
+            f"{prog.family}: {len(layout.scalar_names)} declared scalar "
+            f"slot(s) but scalar_values() resolves {len(vals)}")
+    if not all(isinstance(v, int) for v in vals):
+        raise AssertionError(f"{prog.family}: scalar slots must be int32 "
+                             f"values, got {vals}")
+
+    n = 2
+    planes = tuple(torch.full((n,), layout.pad_fill(f), dtype=torch.float32)
+                   for f in layout.plane_fields)
+    ctx = frugal.TickCtx(
+        quantile=torch.full((n,), 0.5, dtype=torch.float32), t=0, seed=1,
+        lanes=torch.arange(n, dtype=torch.int32),
+        scalars=tuple(max(v, 1) for v in vals))
+    item = torch.tensor([3.0, float("nan")], dtype=torch.float32)
+    u = torch.full((n,), 0.25, dtype=torch.float32)
+    out = prog.run_tick(planes, item, u, ctx)
+    if len(out) != len(layout.plane_fields):
+        raise AssertionError(
+            f"{prog.family}: tick returned {len(out)} plane(s), layout "
+            f"declares {len(layout.plane_fields)}")
+    for f, p in zip(layout.plane_fields, out):
+        if tuple(p.shape) != (n,) or p.dtype != torch.float32:
+            raise AssertionError(
+                f"{prog.family}: tick output plane {f!r} has "
+                f"shape {tuple(p.shape)} dtype {p.dtype}")
+
+    words = layout.pack_planes(out)
+    if len(words) != layout.num_words:
+        raise AssertionError(f"{prog.family}: packing spec word count")
+    for w, dt in zip(words, layout.word_dtypes):
+        if w.dtype != dt:
+            raise AssertionError(f"{prog.family}: word dtype {w.dtype} != {dt}")
+    back = layout.unpack_words(words)
+    for f, a, b in zip(layout.plane_fields, out, back):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{prog.family}: plane {f!r} does not round-trip its words")
+
+    m_planes = tuple(np.zeros((n,), np.float32) for _ in layout.query_fields)
+    est = prog.run_query(m_planes, t_next=1, seed=0,
+                         lanes=np.arange(n, dtype=np.int32))
+    if np.shape(est) != (n,):
+        raise AssertionError(f"{prog.family}: query shape {np.shape(est)}")
+    tr = prog.run_trace(out, 0)
+    if tuple(tr.shape) != (n,):
+        raise AssertionError(f"{prog.family}: trace shape {tuple(tr.shape)}")
+
+
+def validate_registry() -> Tuple[str, ...]:
+    """Validate every registered family's ``test_instances()`` member;
+    returns the family names checked. A family registered but missing
+    from ``test_instances()`` fails: it would pass unvalidated."""
+    covered = {p.family for p in test_instances()}
+    missing = set(_FAMILIES) - covered
+    if missing:
+        raise AssertionError(
+            f"registered famil{'ies' if len(missing) > 1 else 'y'} "
+            f"{sorted(missing)} missing from test_instances() — add a "
+            "canonical instance so the lint covers it")
+    for prog in test_instances():
+        validate_program(prog)
+    return registered_families()

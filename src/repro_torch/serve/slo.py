@@ -19,12 +19,12 @@ Memory: 2 sketch words per (route × metric) lane (m and the packed
 (step, sign) word), plus one int32 clock per lane. A 10^6-route
 deployment with 3 metrics holds 24 MB of sketch state; the port keeps the
 three planes unpacked on the device (36 MB) and the clock (12 MB).
+Checkpoints (``checkpoint_state`` through ``train.checkpoint``) store the
+two words and the clock, the JAX package's layout leaf for leaf.
 
-Not ported yet: the health scan (``check_health``, ``health_policy``),
-``snapshot`` and the checkpoint methods, which wait for the port of
-``resilience.health``, ``service.snapshot`` and ``train.checkpoint``.
-``from_jax_state`` and ``to_numpy_state`` carry a fleet's exact state
-between this package and the JAX package instead.
+``check_health`` scans every lane under ``health_policy``
+(``resilience.health``). Not ported yet: ``snapshot``, which waits for the
+port of ``service.snapshot``.
 """
 from __future__ import annotations
 
@@ -40,6 +40,7 @@ from repro_torch.configs.platform import resolve_device
 from repro_torch.core.frugal import Frugal2UState
 from repro_torch.core.program import make_program
 from repro_torch.core.sketch import GroupedQuantileSketch
+from repro_torch.train.checkpoint import LeafSpec
 
 # (metric name, target quantile) — the serving SLO trio.
 DEFAULT_METRICS: Tuple[Tuple[str, float], ...] = (
@@ -54,10 +55,13 @@ class SLOFleet:
 
     ``windowed=True`` runs every lane on the decayed Frugal-2U program
     (``2u-decay``): step inertia decays with half-life ``decay_half_life``
-    events, so the sketch tracks recent latency. ``telemetry`` is any
-    object with ``.count(name, n)``; it receives ``slo_events_flushed``
-    and ``slo_flushes``. The fleet's tensors live on ``device`` (None: the
-    card; raises where there is none).
+    events, so the sketch tracks recent latency. ``health_policy``
+    (default "quarantine") is the lane-corruption policy of
+    ``check_health``, which accumulates ``quarantined_total`` and keeps
+    ``last_health``. ``telemetry`` is any object with ``.count(name, n)``;
+    it receives ``slo_events_flushed``, ``slo_flushes`` and
+    ``quarantined_lanes``. The fleet's tensors live on ``device`` (None:
+    the card; raises where there is none).
     """
 
     # Up to this many lanes a flush round ticks the whole [C] state (one
@@ -67,7 +71,9 @@ class SLOFleet:
 
     def __init__(self, metrics: Sequence[Tuple[str, float]] = DEFAULT_METRICS,
                  seed: int = 0, capacity: int = 64, windowed: bool = False,
-                 decay_half_life: int = 4096, telemetry=None, device=None):
+                 decay_half_life: int = 4096,
+                 health_policy: str = "quarantine", telemetry=None,
+                 device=None):
         if not metrics:
             raise ValueError("need at least one (name, quantile) metric")
         self.telemetry = telemetry
@@ -79,6 +85,9 @@ class SLOFleet:
         self.seed = int(seed)
         self.windowed = bool(windowed)
         self.decay_half_life = int(decay_half_life)
+        self.health_policy = str(health_policy)
+        self.quarantined_total = 0
+        self.last_health = None
         self.device = resolve_device(device)
         self._routes: Dict[str, int] = {}
         self._pending: List[Tuple[int, float]] = []
@@ -94,7 +103,7 @@ class SLOFleet:
             if self.windowed else "2u"
         return FleetSpec(num_groups=cap_routes,
                          quantiles=tuple(q for _, q in self.metrics),
-                         program=program)
+                         program=program, health=self.health_policy)
 
     # ------------------------------------------------ fleet state, projected
     @property
@@ -240,6 +249,21 @@ class SLOFleet:
                           for i, (name, _) in enumerate(self.metrics)}
         return out
 
+    def check_health(self):
+        """Flush pending events, then scan every lane against its program's
+        declared invariants under ``health_policy``: "quarantine" resets
+        corrupt lanes (bit-exact with a lane created at its current tick),
+        "raise" throws LaneCorruptionError, "ignore" only reports. Returns
+        the HealthReport."""
+        self.flush()
+        fleet, rep = self._fleet.check_health()
+        self._fleet = fleet
+        self.quarantined_total += rep.quarantined
+        self.last_health = rep
+        if self.telemetry is not None and rep.quarantined:
+            self.telemetry.count("quarantined_lanes", rep.quarantined)
+        return rep
+
     def memory_words(self) -> int:
         """Persistent sketch words per (route × metric) lane: 2, as in the
         paper (the per-lane clock word comes on top)."""
@@ -250,56 +274,83 @@ class SLOFleet:
         per-lane clock)."""
         return self.memory_words() * self.num_lanes
 
-    # ------------------------------------------------------- carry across
-    def to_numpy_state(self) -> dict:
-        """The JAX ``SLOFleet.checkpoint_state()`` layout with numpy leaves
-        (pending events flushed first): ``sketch`` (m, step, sign planes),
-        ``ticks`` (the per-lane clock) and ``meta_blob`` (the route table,
-        metrics and settings as uint8 JSON). The JAX package's
-        ``SLOFleet.from_checkpoint_state`` takes it as it is."""
+    # -------------------------------------------------------- serialization
+    def checkpoint_state(self) -> dict:
+        """Tree for ``train.checkpoint.save_checkpoint`` (pending events
+        flushed first): ``sketch`` (a Frugal2UState, stored as 2 words per
+        lane), ``ticks`` (the per-lane clock) and ``meta_blob`` (the route
+        table, metrics and settings as uint8 JSON). The per-lane quantiles
+        are not stored: they tile the metrics list. The planes and clock
+        are the fleet's own tensors, which the next flush updates in
+        place: save (or copy) them before the fleet ingests again."""
         self.flush()
         meta = {"routes": self.routes(), "metrics": list(self.metrics),
                 "seed": self.seed, "windowed": self.windowed,
-                "decay_half_life": self.decay_half_life}
+                "decay_half_life": self.decay_half_life,
+                "health_policy": self.health_policy}
         blob = np.frombuffer(json.dumps(meta).encode("utf-8"),
                              np.uint8).copy()
-        return {"sketch": Frugal2UState(m=self._m.cpu().numpy(),
-                                        step=self._step.cpu().numpy(),
-                                        sign=self._sign.cpu().numpy()),
-                "ticks": self._ticks.cpu().numpy(),
-                "meta_blob": blob}
+        return {"sketch": Frugal2UState(m=self._m, step=self._step,
+                                        sign=self._sign),
+                "ticks": self._ticks, "meta_blob": blob}
+
+    def checkpoint_template(self) -> dict:
+        """Structure-only ``like`` tree for ``restore_checkpoint``: no
+        flush, no allocation; stored shapes win, so it restores any
+        capacity."""
+        c = self._cap_routes * self.n_metrics
+        f32 = LeafSpec((c,), np.float32)
+        return {"sketch": Frugal2UState(m=f32, step=f32, sign=f32),
+                "ticks": LeafSpec((c,), np.int32),
+                "meta_blob": LeafSpec((0,), np.uint8)}
 
     @classmethod
-    def from_jax_state(cls, state: dict, telemetry=None,
-                       device=None) -> "SLOFleet":
-        """A port fleet that continues exactly where a JAX ``SLOFleet``
-        stands. ``state`` is that fleet's ``checkpoint_state()`` (leaves
-        as numpy arrays or anything ``np.asarray`` takes): ``sketch`` with
-        ``m``, ``step`` and ``sign`` planes, ``ticks``, ``meta_blob``."""
-        meta = json.loads(bytes(np.asarray(state["meta_blob"],
-                                           np.uint8)).decode("utf-8"))
+    def from_checkpoint_state(cls, state: dict, telemetry=None,
+                              device=None) -> "SLOFleet":
+        """A fleet on ``device`` (None: the card; raises where there is
+        none) from a ``checkpoint_state()`` tree of either package: a
+        restored checkpoint, or numpy leaves (anything ``np.asarray``
+        takes). The tensors are copies; the tree is left as it was."""
+        meta = json.loads(bytes(_host(state["meta_blob"]).astype(
+            np.uint8)).decode("utf-8"))
         fleet = cls(metrics=[tuple(mq) for mq in meta["metrics"]],
                     seed=int(meta["seed"]), capacity=1,
                     windowed=bool(meta.get("windowed", False)),
                     decay_half_life=int(meta.get("decay_half_life", 4096)),
+                    health_policy=str(meta.get("health_policy",
+                                               "quarantine")),
                     telemetry=telemetry, device=device)
         sk = state["sketch"]
-        m = np.asarray(sk.m, np.float32)
-        ticks = np.asarray(state["ticks"], np.int32)
-        if m.shape[0] % fleet.n_metrics or ticks.shape != m.shape:
-            raise ValueError(f"{m.shape[0]} lanes and {ticks.shape} clocks "
-                             f"do not tile {fleet.n_metrics} metrics")
-        spec = fleet._spec(m.shape[0] // fleet.n_metrics)
+        n, ticks = np.shape(sk.m)[0], state["ticks"]
+        if n % fleet.n_metrics or tuple(np.shape(ticks)) != (n,):
+            raise ValueError(f"{n} lanes and {tuple(np.shape(ticks))} "
+                             f"clocks do not tile {fleet.n_metrics} metrics")
+        spec = fleet._spec(n // fleet.n_metrics)
 
-        def plane(x, dtype=np.float32):
-            return torch.from_numpy(np.array(x, dtype)).to(fleet.device)
+        def owned(x, dtype=torch.float32):
+            if isinstance(x, torch.Tensor):
+                return x.to(device=fleet.device, dtype=dtype, copy=True)
+            return torch.from_numpy(np.array(x)).to(device=fleet.device,
+                                                    dtype=dtype)
 
         lane_sk = GroupedQuantileSketch(
-            m=plane(sk.m), step=plane(sk.step), sign=plane(sk.sign),
-            quantile=plane(spec.lane_quantiles()), algo="2u",
+            m=owned(sk.m), step=owned(sk.step), sign=owned(sk.sign),
+            quantile=owned(spec.lane_quantiles()), algo="2u",
             drift=spec.drift)
         cursor = StreamCursor.create(seed=meta["seed"],
-                                     t_offset=plane(ticks, np.int32))
+                                     t_offset=owned(ticks, torch.int32))
         fleet._fleet = QuantileFleet(state=lane_sk, cursor=cursor, spec=spec)
         fleet._routes = {r: i for i, r in enumerate(meta["routes"])}
         return fleet
+
+    # ------------------------------------------------------- carry across
+    def to_numpy_state(self) -> dict:
+        """``checkpoint_state()`` with numpy leaves, the layout the JAX
+        package's ``SLOFleet.from_checkpoint_state`` takes as it is."""
+        st = self.checkpoint_state()
+        return {"sketch": Frugal2UState(*(_host(p) for p in st["sketch"])),
+                "ticks": _host(st["ticks"]), "meta_blob": st["meta_blob"]}
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

@@ -27,10 +27,25 @@ holds the planes and clocks after the batch is split into rounds
 (``run_rounds``) and the rounds go through the same JAX function in
 order.
 
+Checkpoints (directory ``tests/data/jax_checkpoints/``, keys ``ckpt/*``):
+format-4 checkpoints the JAX package writes, one step each, for a fleet
+of 1024 groups x 3 quantiles on ``2u`` and on ``2u-window`` (W = 96),
+cursor seed 2024 at t_offset 2^31 - 150 and g_offset 7, after 300 ticks
+of lognormal items with 5% NaN (``ckpt_items``), and for an ``SLOFleet``
+of 1500 routes (capacity 2048 routes, 6144 lanes) after one flush of 3000
+Zipf(1.2)-routed observations (``slo_observations``). The golden file
+holds each one's continuation as the JAX package computes it: the fleets'
+packed words and cursor after 200 more ticks, the SLO fleet's planes and
+clocks after a second flush of 2000 observations, which it also holds
+(``ckpt/slo/{routes,metrics,values}``: numpy's Zipf sampler is not the
+same in every numpy version, its lognormal sampler is).
+
     PYTHONPATH=src python tests/make_torch_port_golden.py
 """
 import os
+import shutil
 import sys
+import tempfile
 
 import numpy as np
 
@@ -51,6 +66,12 @@ ZIPF_A = 1.2
 # Clocks of the four hottest lanes of a run batch: their long runs cross
 # the int32 wrap and window-epoch edges (W = 96).
 HOT_TICKS = (2 ** 31 - 40, 2 ** 31 - 200, -130, -1)
+CKPT_ROOT = os.path.join(os.path.dirname(GOLDEN), "jax_checkpoints")
+CKPT_PROGRAMS = {"2u": {}, "2u-window": {"window": 96}}
+CKPT_G, CKPT_CHUNK_T, CKPT_T1, CKPT_T2 = 1024, 128, 300, 200
+CKPT_SEED, CKPT_T_OFFSET, CKPT_G_OFFSET = 2024, 2 ** 31 - 150, 7
+CKPT_SLO_SEED, CKPT_SLO_CAPACITY, CKPT_SLO_ROUTES = 5, 2048, 1500
+CKPT_SLO_EVENTS = (3000, 2000)
 
 
 def random_planes(rng, prog, lanes):
@@ -322,7 +343,88 @@ def runs_final(data, prog):
         data[f"{prog.family}/runs_ticks_out"]]
 
 
-def build():
+def ckpt_items(family, part):
+    """[T1 or T2, CKPT_G] lognormal items (5% NaN) of a checkpointed
+    fleet's first (part 0) or continued (part 1) ingest."""
+    rng = np.random.default_rng([SEED, 3, list(CKPT_PROGRAMS).index(family),
+                                 part])
+    t = (CKPT_T1, CKPT_T2)[part]
+    items = rng.lognormal(4.0, 1.0, (t, CKPT_G)).astype(np.float32)
+    items[rng.random((t, CKPT_G)) < 0.05] = np.nan
+    return items
+
+
+def slo_observations(part):
+    """(route ids, metric ids, values) of the checkpointed SLO fleet's
+    first (part 0) or continued (part 1) flush: Zipf(1.2) routes over
+    CKPT_SLO_ROUTES, a uniform metric of 3, lognormal values, 2% NaN."""
+    rng = np.random.default_rng([SEED, 4, part])
+    n = CKPT_SLO_EVENTS[part]
+    routes = (rng.zipf(ZIPF_A, n) - 1) % CKPT_SLO_ROUTES
+    values = rng.lognormal(3.0, 1.0, n)
+    values[rng.random(n) < 0.02] = np.nan
+    return routes, rng.integers(0, 3, n), values
+
+
+def feed_slo(fleet, metrics, observations):
+    """Observe (route ids, metric ids, values) on ``fleet`` and flush."""
+    for r, m, v in zip(*(np.asarray(x).tolist() for x in observations)):
+        fleet.observe(f"r{r}", metrics[m], v)
+    fleet.flush()
+
+
+def slo_continuation(data):
+    """The stored (route ids, metric ids, values) of the SLO fleet's
+    continued flush."""
+    return tuple(data[f"ckpt/slo/{k}"] for k in ("routes", "metrics",
+                                                  "values"))
+
+
+def golden_checkpoints(root):
+    """Write the JAX package's checkpoints under ``root`` (one directory
+    per fleet: ``2u``, ``2u-window``, ``slo``) and return {key: array} of
+    their continuations."""
+    from repro.api import FleetSpec, QuantileFleet, StreamCursor
+    from repro.core.program import make_program
+    from repro.serve.slo import DEFAULT_METRICS, SLOFleet
+    from repro.train import checkpoint as ckpt
+
+    out = {}
+    for family, kw in CKPT_PROGRAMS.items():
+        spec = FleetSpec(num_groups=CKPT_G, quantiles=QUANTILES,
+                         chunk_t=CKPT_CHUNK_T, backend="jnp",
+                         program=make_program(family, **kw))
+        fleet = QuantileFleet.create(spec, cursor=StreamCursor.create(
+            seed=CKPT_SEED, t_offset=CKPT_T_OFFSET,
+            g_offset=CKPT_G_OFFSET)).ingest(ckpt_items(family, 0))
+        fleet.checkpoint(os.path.join(root, family), step=1)
+        after = fleet.ingest(ckpt_items(family, 1))
+        for name, x in after._lane_sketch().packed()._asdict().items():
+            if x is not None:
+                out[f"ckpt/{family}/{name}"] = np.asarray(x)
+        out[f"ckpt/{family}/cursor"] = np.asarray(
+            [int(x) for x in after.cursor], np.int64)
+    metrics = [m for m, _ in DEFAULT_METRICS]
+    fleet = SLOFleet(seed=CKPT_SLO_SEED, capacity=CKPT_SLO_CAPACITY)
+    fleet.ensure_routes(f"r{i}" for i in range(CKPT_SLO_ROUTES))
+    feed_slo(fleet, metrics, slo_observations(0))
+    ckpt.save_checkpoint(os.path.join(root, "slo"), 1,
+                         fleet.checkpoint_state())
+    more = slo_observations(1)
+    feed_slo(fleet, metrics, more)
+    for k, x in zip(("routes", "metrics", "values"), more):
+        out[f"ckpt/slo/{k}"] = x
+    for name in ("_m", "_step", "_sign", "_ticks"):
+        out[f"ckpt/slo/{name[1:]}"] = np.asarray(getattr(fleet, name))
+    return out
+
+
+def build(ckpt_root=None):
+    """{key: array} of the golden file; the checkpoints go to
+    ``ckpt_root`` (None: a temporary directory, removed after)."""
+    if ckpt_root is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            return build(tmp)
     items, quantile, planes = golden_inputs()
     arrays = golden_outputs(items, quantile, planes)
     arrays.update(items=items, quantile=quantile,
@@ -331,6 +433,7 @@ def build():
     sparse = golden_sparse()
     arrays.update(sparse)
     arrays.update(golden_runs(sparse))
+    arrays.update(golden_checkpoints(ckpt_root))
     return arrays
 
 
@@ -338,5 +441,7 @@ if __name__ == "__main__":
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "src"))
     os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
-    np.savez_compressed(GOLDEN, **build())
-    print(f"wrote {GOLDEN} ({os.path.getsize(GOLDEN)} bytes)")
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    np.savez_compressed(GOLDEN, **build(CKPT_ROOT))
+    print(f"wrote {GOLDEN} ({os.path.getsize(GOLDEN)} bytes) and "
+          f"{CKPT_ROOT}")

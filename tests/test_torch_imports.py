@@ -29,7 +29,9 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
     mods = port_modules()
     for m in ("repro_torch.kernels.frugal_update", "repro_torch.kernels.ops",
               "repro_torch.api.fleet", "repro_torch.serve",
-              "repro_torch.serve.slo"):
+              "repro_torch.serve.slo", "repro_torch.resilience.chaos",
+              "repro_torch.resilience.health",
+              "repro_torch.train.checkpoint"):
         assert m in mods
     code = (
         "import importlib, sys\n"

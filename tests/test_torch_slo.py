@@ -8,7 +8,8 @@ the sparse one (one ``tick_lanes_sparse`` call per flush, each lane's
 events one run, 2048 routes x 3 metrics = 6144 lanes), vanilla and
 windowed (``2u-decay``). The JAX fleet applies the sparse branch round by
 round, so the two agree only if a run equals its rounds. State carries
-across the two packages both ways and both continue bit-for-bit.
+across the two packages both ways (the meta blob equal to the JAX
+package's, health policy included) and both continue bit-for-bit.
 
 Tolerance: bit-exact (float32 compared as int32 bit patterns, clocks
 compared exactly).
@@ -163,12 +164,14 @@ def test_default_device_is_the_card():
 @pytest.mark.parametrize("windowed", [False, True],
                          ids=["2u", "2u-decay"])
 def test_state_carries_across_both_ways(windowed):
-    kw = dict(seed=3, capacity=2048, windowed=windowed, decay_half_life=64)
+    kw = dict(seed=3, capacity=2048, windowed=windowed, decay_half_life=64,
+              health_policy="ignore")
     jfl = JSLOFleet(**kw)
     jfl.ensure_routes(f"r{i}" for i in range(1500))
     feed(jfl, observations(1500, 800, 11))
-    tfl = SLOFleet.from_jax_state(jfl.checkpoint_state(), device="cpu")
-    assert tfl.windowed == windowed
+    tfl = SLOFleet.from_checkpoint_state(jfl.checkpoint_state(),
+                                       device="cpu")
+    assert tfl.windowed == windowed and tfl.health_policy == "ignore"
     assert_same(jfl, tfl, "carried in")
     obs = observations(1500, 800, 12)
     feed(jfl, obs)
@@ -177,7 +180,11 @@ def test_state_carries_across_both_ways(windowed):
 
     state = tfl.to_numpy_state()
     assert isinstance(state["ticks"], np.ndarray)
+    # The meta blob is the JAX package's, health policy included.
+    np.testing.assert_array_equal(state["meta_blob"],
+                                  jfl.checkpoint_state()["meta_blob"])
     back = JSLOFleet.from_checkpoint_state(state)
+    assert back.health_policy == "ignore"
     assert_same(back, tfl, "carried out")
     obs = observations(1500, 800, 13)
     feed(back, obs)
