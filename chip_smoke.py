@@ -64,7 +64,27 @@ each or more:
      more flushes. Each result bit-identical to the uninterrupted run (the
      healed lane to a lane created at its cursor); save, restore and
      health-scan times, bytes on disk, and the phase's dense and run
-     kernel launches.
+     kernel launches;
+  9. the streaming service on the card, the JAX package's e14 deployment
+     (benchmarks/bench_service_e2e.py): FleetSpec(2^20 groups, q50,
+     2u-decay with half-life 2^16, chunk_t 64), seed 17, a "partner"
+     tenant at epsilon 0.8, 24 chunks of [64, 2^20] items made on the
+     host with numpy before any timed window (chunk k from seed (17, k),
+     normal(50, 15)). (a) ingest only with put-ahead depth 1 and (a0)
+     depth 0: items/s, apply ms, pin ms and H2D ms per chunk (CUDA events
+     on the staging stream), the chunks-in-flight peak, peak device
+     memory; (b) ingest with a reader paced as e14's (trusted and DP reads
+     in turn): items/s against (a), query ms, the telemetry's own
+     quantiles; (c) every answer of (b) bit-identical to a single-threaded
+     replay on the card, whose last planes equal the plain version's
+     replay; (d) a seeded query stall under load: counted once, ingest
+     unperturbed, the retried read exact; (e) the JAX service's answers
+     and telemetry histogram at 4096 groups (golden file); (f)
+     SLOFleet.snapshot() at 10^6 routes x 3 metrics with events pending,
+     unchanged by 3 donated flushes; (g) the token corpus staged on the
+     card, 64 batches equal to numpy's; the dense kernel at the service's
+     chunk shape against its plain version and bound; the phase's dense
+     and run kernel launches.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -120,6 +140,12 @@ OPS_2U_LANE_TICK = {
     # three two-way choices of m, step and sign (6).
     "select": (16, None),
 }
+# Decayed 2U (ft_tick_2u_decay) adds to the 2U tick: floor - (floor - step)
+# * alpha (two subtractions, one multiply), its gate (item == item, step <
+# floor) and the select of the decayed step.
+OPS_2U_DECAY_LANE_TICK = dict(
+    OPS_2U_LANE_TICK, **{"fp32 add": (11, 128), "fp32 multiply": (1, 128),
+                         "compare": (14, 64), "select": (17, None)})
 # The (seed, t) round of the hash is the same for every lane: once per
 # tick, a multiply-add and fmix32.
 OPS_TICK = {"int32 multiply": (1, 64), "int32 add": (1, 64),
@@ -1325,6 +1351,482 @@ def phase_resilience(torch, gm, card):
     return launches
 
 
+# --------------------------------------------------------------- phase 9
+SVC_G, SVC_CHUNK_T, SVC_CHUNKS = 2 ** 20, 64, 24
+QUERY_DUTY, E14_GATE = 9.0, 0.85          # e14's reader pacing and gate
+SVC_STALL_SEED, SVC_STALL_QUERIES = 3, 4
+SLO_SNAP_FLUSHES, SLO_SNAP_HOT = 3, 16
+CORPUS_BATCHES = 64
+SVC_JOIN_S = 600.0
+
+
+def pct(xs, q) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if xs \
+        else float("nan")
+
+
+def same_answer(a, b) -> bool:
+    import numpy as np
+
+    return a.shape == b.shape and np.array_equal(a.view(np.int32),
+                                                 b.view(np.int32))
+
+
+def service_run(torch, spec, chunks, gm, depth, reader=None):
+    """One StreamingService run over ``chunks`` on the card with put-ahead
+    ``depth``: the service's pipeline stages through a DeviceStager that
+    logs its pin times and copy events; ``reader(svc, tel, stop)`` (if
+    given) runs on a thread of its own while ingest runs. The dense
+    kernel's count is set to 0 just before the run and read after the
+    telemetry's latency read (its flush is a launch too)."""
+    import threading
+
+    from repro_torch.data.pipeline import DeviceStager
+    from repro_torch.kernels import frugal_update as fk
+    from repro_torch.service import (IngestPipeline, StreamingService,
+                                     Telemetry, TenantPolicy)
+
+    class Recording(Telemetry):
+        """Telemetry that also keeps every raw latency and each gauge's
+        peak."""
+
+        def __init__(self):
+            super().__init__()
+            self.raw = {"ingest_chunk_ms": [], "query_ms": []}
+            self.peaks = {}
+            self._peak_lock = threading.Lock()
+
+        def observe_ms(self, metric, ms):
+            super().observe_ms(metric, ms)
+            self.raw[metric].append(float(ms))
+
+        def gauge(self, name, value):
+            super().gauge(name, value)
+            with self._peak_lock:
+                self.peaks[name] = max(self.peaks.get(name, value), value)
+
+    dev = torch.device("cuda")
+    tel = Recording()
+    svc = StreamingService(spec, seed=gm.SERVICE_SEED, telemetry=tel,
+                           prefetch_depth=depth, tenants=[TenantPolicy(
+                               "partner", epsilon=gm.SERVICE_EPSILON)])
+    if svc.fleet.device.type != dev.type:
+        fail(f"service: the fleet was created on {svc.fleet.device}")
+    log = []
+    svc.pipeline = IngestPipeline(depth=depth, telemetry=tel,
+                                  transfer=DeviceStager(dev, log=log))
+    stop, errors = threading.Event(), []
+
+    def guarded():
+        try:
+            reader(svc, tel, stop)
+        except BaseException as e:  # noqa: BLE001 — reported by fail()
+            errors.append(e)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.launch_count = 0
+    t0 = time.perf_counter()
+    svc.start(iter(chunks))
+    rt = None
+    if reader is not None:
+        rt = threading.Thread(target=guarded, name="service-reader",
+                              daemon=True)
+        rt.start()
+    svc.join(timeout=SVC_JOIN_S)
+    wall = time.perf_counter() - t0
+    if rt is not None:
+        stop.set()
+        rt.join(timeout=60.0)
+        if rt.is_alive():
+            fail("service: the reader thread did not stop")
+    torch.cuda.synchronize()
+    lat = tel.latency_quantiles()
+    launches = fk.launch_count
+    if errors:
+        fail(f"service: the reader failed: {errors[0]!r}")
+    return {"svc": svc, "tel": tel, "log": log, "wall": wall, "lat": lat,
+            "peak": torch.cuda.max_memory_allocated(), "launches": launches}
+
+
+def say_run(label, run, chunk_bytes, card):
+    pin = [p for p, _, _ in run["log"]]
+    h2d = [a.elapsed_time(b) for _, a, b in run["log"]]
+    apply_ms = run["tel"].raw["ingest_chunk_ms"]
+    items = len(apply_ms) * chunk_bytes // 4
+    say("service", run=label, items_per_s=f"{items / run['wall']:.4e}",
+        wall_s=f"{run['wall']:.4f}", chunks=len(apply_ms),
+        dense_kernel_launches=run["launches"],
+        max_memory_allocated_bytes=run["peak"], card=card)
+    say("service", run=label,
+        apply_ms_p50=f"{pct(apply_ms, 50):.4f}",
+        apply_ms_p99=f"{pct(apply_ms, 99):.4f}",
+        pin_ms_p50=f"{pct(pin, 50):.4f}", pin_ms_p99=f"{pct(pin, 99):.4f}",
+        h2d_ms_p50=f"{pct(h2d, 50):.4f}", h2d_ms_p99=f"{pct(h2d, 99):.4f}",
+        h2d_gb_per_s=f"{chunk_bytes / pct(h2d, 50) / 1e6:.3f}",
+        chunks_in_flight_max=run["tel"].peaks.get("chunks_in_flight"),
+        note="apply and pin on the host clock; H2D on the side stream "
+             "(CUDA events)")
+
+
+def phase_service(torch, gm, card):
+    """Phase 9; returns the kernels-line entry of the dense kernel at the
+    service's chunk shape."""
+    import numpy as np
+    from repro_torch.api import FleetSpec, QuantileFleet
+    from repro_torch.core.program import make_program
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.kernels import frugal_update as fk
+    from repro_torch.resilience import FaultPlan, QueryStalled, chaos
+    from repro_torch.serve import DEFAULT_METRICS, SLOFleet
+    from repro_torch.service import (Snapshot, StreamingService, Telemetry,
+                                     TenantPolicy)
+
+    dev = torch.device("cuda")
+    phase_t0 = time.perf_counter()
+    eps = gm.SERVICE_EPSILON
+    prog = make_program("2u-decay", half_life=gm.SERVICE_HALF_LIFE)
+    spec = FleetSpec(num_groups=SVC_G, quantiles=(0.5,),
+                     chunk_t=SVC_CHUNK_T, program=prog)
+    chunks, make_ms = [], []
+    for k in range(SVC_CHUNKS):
+        t0 = time.perf_counter()
+        chunks.append(gm.service_chunk(k, SVC_CHUNK_T, SVC_G))
+        make_ms.append((time.perf_counter() - t0) * 1e3)
+    chunk_bytes = chunks[0].nbytes
+    items_total = SVC_CHUNKS * SVC_CHUNK_T * SVC_G
+    say("service", groups=SVC_G, quantiles="0.5", program="2u-decay",
+        half_life=gm.SERVICE_HALF_LIFE, seed=gm.SERVICE_SEED,
+        chunk=f"[{SVC_CHUNK_T},{SVC_G}]", chunks=SVC_CHUNKS,
+        items=items_total, chunk_bytes=chunk_bytes,
+        host_bytes=chunk_bytes * SVC_CHUNKS, tenant=f"partner eps={eps}")
+    say("service", make_chunk_ms=f"{make_ms[0]:.2f}",
+        median_make_chunk_ms=f"{statistics.median(make_ms):.2f}",
+        note="numpy normal(50, 15) on the host from seed (17, k), before "
+             "any timed window")
+
+    # (a) ingest only, put-ahead depth 1; (a0) the same, staged in line;
+    # in turns (a, a0, a0, a) after a warm-up run over 4 chunks, whose
+    # first pinned blocks are page-locked anew.
+    say_run("warm-up depth=1", service_run(torch, spec, chunks[:4], gm, 1),
+            chunk_bytes, card)
+    runs = {}
+    for label, depth in (("a", 1), ("a0", 0), ("a0", 0), ("a", 1)):
+        run = service_run(torch, spec, chunks, gm, depth)
+        runs.setdefault(label, []).append(run)
+        say_run(f"{label} depth={depth} #{len(runs[label])}", run,
+                chunk_bytes, card)
+    wall = {k: statistics.mean(r["wall"] for r in v)
+            for k, v in runs.items()}
+    say("service", a0_over_a=f"{wall['a'] / wall['a0']:.4f}",
+        note="items/s of depth 0 over depth 1, mean walls of two runs each")
+
+    # (b) ingest with a reader paced as e14's: it sleeps QUERY_DUTY times
+    # its last query's cost, alternating a trusted and a DP read.
+    answers, q_ms = {}, {"raw": [], "dp": []}
+
+    def reader(svc, tel, stop):
+        dp_turn = False
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            snap = svc.snapshot()
+            kind = "dp" if dp_turn else "raw"
+            ans = snap.estimate_dp(eps) if dp_turn else snap.estimate()
+            dt = time.perf_counter() - t0
+            q_ms[kind].append(dt * 1e3)
+            tel.observe_ms("query_ms", dt * 1e3)
+            tel.count("queries_served")
+            slot = answers.setdefault(snap.items_ingested, {})
+            if kind in slot and not same_answer(slot[kind], ans):
+                raise AssertionError(f"two {kind} answers at cursor "
+                                     f"{snap.items_ingested} differ")
+            slot.setdefault(kind, ans)
+            dp_turn = not dp_turn
+            stop.wait(min(2.0, QUERY_DUTY * dt))
+
+    run_b = service_run(torch, spec, chunks, gm, 1, reader)
+    final = run_b["svc"].snapshot()
+    answers.setdefault(final.items_ingested, {})["raw"] = final.estimate()
+    say_run("b depth=1 + reader", run_b, chunk_bytes, card)
+    fraction = wall["a"] / run_b["wall"]
+    served = run_b["tel"].counters().get("queries_served", 0)
+    lat_b = run_b["lat"]
+    say("service", run="b", fraction_of_a=f"{fraction:.4f}",
+        e14_gate=E14_GATE, e14_gate_met=fraction >= E14_GATE,
+        note="the gate is information here: it fails nothing")
+    say("service", run="b", queries_served=served,
+        trusted_queries=len(q_ms["raw"]), dp_queries=len(q_ms["dp"]),
+        trusted_ms_p50=f"{pct(q_ms['raw'], 50):.3f}",
+        trusted_ms_p99=f"{pct(q_ms['raw'], 99):.3f}",
+        dp_ms_p50=f"{pct(q_ms['dp'], 50):.3f}",
+        dp_ms_p99=f"{pct(q_ms['dp'], 99):.3f}", card=card)
+    say("service", run="b", **{
+        f"telemetry_{m}_{p}": f"{lat_b[m][p]:.4f}"
+        for m in ("ingest_chunk_ms", "query_ms") for p in ("p50", "p99")},
+        note="the service's own frugal histogram (2u lanes on the card)")
+    quiet = {"internal": [], "partner": []}
+    for _ in range(8):
+        for tenant, got in quiet.items():
+            t0 = time.perf_counter()
+            run_b["svc"].query(tenant=tenant)
+            got.append((time.perf_counter() - t0) * 1e3)
+    say("service", run="b, after ingest", queries=8,
+        trusted_ms=",".join(f"{v:.3f}" for v in quiet["internal"]),
+        dp_ms=",".join(f"{v:.3f}" for v in quiet["partner"]), card=card,
+        note="StreamingService.query at the last cursor, no ingest running")
+
+    # (c) audit: every answer of (b) against a single-threaded replay on
+    # the card, and that replay against the plain version's.
+    replay = QuantileFleet.create(spec, seed=gm.SERVICE_SEED)
+    fresh_words = prog.layout.pack_planes(replay.state.planes())
+    quantile, seed = replay.state.quantile, replay.cursor.seed
+    snaps = {0: Snapshot.capture(replay)}
+    for k, c in enumerate(chunks):
+        replay = replay.ingest(c)
+        snaps[(k + 1) * SVC_CHUNK_T] = Snapshot.capture(replay)
+    verified = {"raw": 0, "dp": 0}
+    for cursor, got in sorted(answers.items()):
+        if cursor not in snaps:
+            fail(f"service (c): an answer at cursor {cursor}, not a chunk "
+                 "boundary")
+        for kind, ans in got.items():
+            want = snaps[cursor].estimate() if kind == "raw" \
+                else snaps[cursor].estimate_dp(eps)
+            if not same_answer(ans, want):
+                fail(f"service (c): the {kind} answer at cursor {cursor} "
+                     "differs from the replay")
+            verified[kind] += 1
+    if sum(verified.values()) < 2:
+        fail(f"service (c): only {verified} answers verified")
+    words = fresh_words
+    for k, c in enumerate(chunks):
+        words = fk.frugal_program_dense_reference(
+            prog, torch.from_numpy(c).to(dev), words, quantile, seed,
+            t_offset=k * SVC_CHUNK_T)
+    if not same_bits(torch, prog.layout.pack_planes(replay.state.planes()),
+                     words):
+        fail("service (c): the replay's planes differ from the plain "
+             "version's replay")
+    main_runs = [(k, r) for k, v in runs.items() for r in v] + [
+        ("b", run_b)]
+    for label, run in main_runs:
+        if not same_state(torch, run["svc"].fleet, replay):
+            fail(f"service (c): a run {label}'s final fleet differs from "
+                 "the replay")
+    say("service", check="c", answers_verified=sum(verified.values()),
+        trusted=verified["raw"], dp=verified["dp"],
+        cursors=len(answers), result="every answer served in (b) "
+        "bit-identical to a single-threaded replay on the card; its last "
+        "planes to the plain version's replay; every run ends on them")
+
+    # (d) a seeded query stall under load, retried at once.
+    stalls, loaded_ms = [], []
+
+    def stall_reader(svc, tel, stop):
+        while not stop.is_set():
+            try:
+                t0 = time.perf_counter()
+                svc.query()
+                loaded_ms.append((time.perf_counter() - t0) * 1e3)
+            except QueryStalled:
+                running = svc.ingest_running
+                snap = svc.snapshot()
+                stalls.append((snap.items_ingested, snap.estimate(),
+                               running))
+                return
+
+    plan = FaultPlan.seeded_query_stall(SVC_STALL_SEED, SVC_STALL_QUERIES)
+    with chaos.armed(plan):
+        run_d = service_run(torch, spec, chunks, gm, 1, stall_reader)
+    stalled = run_d["tel"].counters().get("queries_stalled", 0)
+    if plan.fired() != 1 or stalled != 1 or len(stalls) != 1:
+        fail(f"service (d): {plan.fired()} stalls fired, {stalled} counted,"
+             f" {len(stalls)} retried")
+    cursor, retried, running = stalls[0]
+    if not running:
+        fail("service (d): the stall fired after ingest had ended")
+    if not same_answer(retried, snaps[cursor].estimate()):
+        fail(f"service (d): the retried read at cursor {cursor} differs "
+             "from the replay")
+    if not same_state(torch, run_d["svc"].fleet,
+                      runs["a"][0]["svc"].fleet):
+        fail("service (d): the fleet's final state differs from run (a)'s")
+    say("service", check="d", stall_plan_seed=SVC_STALL_SEED,
+        stalled_at_query=plan.faults[0].at, retried_at_cursor=cursor,
+        ingest_running=running, queries_stalled=stalled,
+        trusted_ms_before=",".join(f"{v:.3f}" for v in loaded_ms),
+        dense_kernel_launches=run_d["launches"],
+        result="ingest unperturbed (final state = run a's); the retried "
+               "read = the replay at its cursor")
+
+    # (e) the JAX package's service and telemetry at small size.
+    data = np.load(GOLDEN)
+    small = [gm.service_chunk(k) for k in range(gm.SERVICE_CHUNKS)]
+    crcs = [gm.chunk_crc32(c) for c in small]
+    if crcs != data["service/chunk_crc32"].tolist():
+        fail("service (e): numpy here draws other chunks from the golden "
+             f"seeds (CRC32 {crcs} != {data['service/chunk_crc32']})")
+    gsvc = StreamingService(
+        FleetSpec(num_groups=gm.SERVICE_G, quantiles=(0.5,),
+                  chunk_t=gm.SERVICE_CHUNK_T, program=prog),
+        seed=gm.SERVICE_SEED,
+        tenants=[TenantPolicy("partner", epsilon=eps)])
+    for k in range(gm.SERVICE_CHUNKS + 1):
+        if not same_answer(gsvc.query(), data["service/raw"][k]) or \
+                not same_answer(gsvc.query(tenant="partner"),
+                                data["service/dp"][k]):
+            fail(f"service (e): the answers at boundary {k} differ from "
+                 "the JAX service's")
+        if k < gm.SERVICE_CHUNKS:
+            gsvc.ingest(small[k])
+    tel = Telemetry(seed=gm.TELEMETRY_SEED)
+    if not same_answer(gm.feed_telemetry(tel), data["telemetry/latency"]):
+        fail("service (e): the telemetry quantiles differ from the JAX "
+             "package's")
+    tel.flush()
+    for f in ("m", "step", "sign"):
+        if not same_answer(getattr(tel._fleet.state, f).cpu().numpy(),
+                           data[f"telemetry/{f}"]):
+            fail(f"service (e): the telemetry lanes' {f} differs")
+    if list(tel._fleet.cursor) != data["telemetry/cursor"].tolist():
+        fail(f"service (e): telemetry cursor {tel._fleet.cursor}")
+    say("service", check="e", groups=gm.SERVICE_G,
+        boundaries=gm.SERVICE_CHUNKS + 1, telemetry_observations=len(
+            gm.telemetry_observations()),
+        result="trusted and DP answers at every boundary and the "
+               "telemetry histogram bit-identical to the JAX package's")
+
+    # (f) SLOFleet.snapshot() at phase 6's size, with events pending.
+    metrics = [m for m, _ in DEFAULT_METRICS]
+    rng = np.random.default_rng(9)
+    names = [f"route-{i}" for i in range(SLO_ROUTES)]
+    batches = [((rng.zipf(ZIPF_A, SLO_EVENTS) - 1) % SLO_ROUTES,
+                rng.integers(0, len(metrics), SLO_EVENTS),
+                rng.lognormal(3.0, 1.0, SLO_EVENTS))
+               for _ in range(2 + SLO_SNAP_FLUSHES)]
+
+    def observe(fleet, batch):
+        for ri, mi, vi in zip(*(x.tolist() for x in batch)):
+            fleet.observe(names[ri], metrics[mi], vi)
+
+    slo = SLOFleet(seed=0, capacity=64)
+    slo.ensure_routes(names)
+    fk.scatter_launch_count = 0
+    observe(slo, batches[0])
+    slo.flush()
+    observe(slo, batches[1])                    # pending at the snapshot
+    snap, snap_ms = timed(torch, slo.snapshot)
+    capture_ms = [timed(torch, slo.snapshot)[1]  # nothing pending
+                  for _ in range(5)]
+    copied = sum(p.nbytes for p in snap.m_planes) + snap.t_next.nbytes
+    est = snap.estimate()
+    if not same_answer(est.reshape(-1), slo._m.cpu().numpy()):
+        fail("service (f): the snapshot differs from the fleet's estimates")
+    counts = np.bincount(np.concatenate([r for r, _, _ in batches[:2]]),
+                         minlength=SLO_ROUTES)
+    for ri in np.argsort(-counts, kind="stable")[:SLO_SNAP_HOT]:
+        for mi, metric in enumerate(metrics):
+            got = np.float32(slo.estimate(names[ri], metric))
+            if got.view(np.int32) != est[ri, mi].view(np.int32):
+                fail(f"service (f): estimate({names[ri]}, {metric}) != the "
+                     "snapshot's")
+    before = est.copy()
+    for batch in batches[2:]:
+        observe(slo, batch)
+        slo.flush()
+    if not same_answer(snap.estimate(), before):
+        fail("service (f): donated flushes changed a taken snapshot")
+    if same_answer(slo._m.cpu().numpy(), before.reshape(-1)):
+        fail("service (f): the flushes after the snapshot moved no lane")
+    slo_launches = fk.scatter_launch_count
+    say("service", check="f", routes=SLO_ROUTES,
+        lanes=slo._cap_routes * len(metrics), pending_events=SLO_EVENTS,
+        snapshot_ms=f"{snap_ms:.3f}",
+        capture_ms=",".join(f"{v:.3f}" for v in capture_ms),
+        bytes_copied=copied, flushes_after=SLO_SNAP_FLUSHES,
+        run_kernel_launches=slo_launches, card=card,
+        result="snapshot = SLOFleet.estimate right after; unchanged by 3 "
+               "donated flushes")
+
+    # (g) the token corpus staged on the card.
+    corpus = SyntheticCorpus(DataConfig())
+    stream = corpus.iterate(prefetch=1)
+    try:
+        for step in range(CORPUS_BATCHES):
+            got, want = next(stream), corpus.batch(step)
+            for key in ("tokens", "targets"):
+                x = got[key]
+                if x.device.type != dev.type or x.dtype != torch.int32 or \
+                        not np.array_equal(x.cpu().numpy(), want[key]):
+                    fail(f"service (g): batch {step} {key} differs from "
+                         "the numpy batch")
+    finally:
+        stream.close()
+    say("service", check="g", batches=CORPUS_BATCHES,
+        result="SyntheticCorpus(DataConfig()).iterate(prefetch=1) on the "
+               "card bit-identical to the numpy batches")
+
+    # The dense kernel at the service's chunk shape, against its plain
+    # version and its bound.
+    items = torch.from_numpy(chunks[0]).to(dev)
+    words = tuple(w.contiguous() for w in fresh_words)
+    res = {}
+
+    def kernel():
+        res["kernel"] = fk.frugal_program_dense(prog, items, words, quantile,
+                                                seed)
+
+    def plain():
+        res["plain"] = fk.frugal_program_dense_reference(
+            prog, items, words, quantile, seed)
+
+    kernel_ms = event_ms(torch, kernel, 11)[1:]
+    plain_ms = event_ms(torch, plain, 3)[1:]
+    err = max_abs_err(prog.layout.unpack_words(res["kernel"]),
+                      prog.layout.unpack_words(res["plain"]))
+    if not same_bits(torch, res["kernel"], res["plain"]):
+        fail(f"service chunk: the kernel differs from the plain version "
+             f"(max abs err {err})")
+    nbytes = (items.numel() + quantile.numel()) * 4 \
+        + 2 * sum(w.numel() * w.element_size() for w in words)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    sm_clocks_per_s, _ = card_sm_clocks_per_s(torch)
+    lane_ticks = SVC_CHUNK_T * SVC_G
+    ops_ms, ops_binding = operation_bound_ms(
+        ((OPS_2U_DECAY_LANE_TICK, lane_ticks), (OPS_TICK, SVC_CHUNK_T)),
+        sm_clocks_per_s)
+    ms = statistics.median(kernel_ms)
+    busy = [f"{label}={run['launches'] * ms / (run['wall'] * 1e3):.4f}"
+            for label, run in main_runs]
+    say("service", kernel="B1", chunk=f"[{SVC_CHUNK_T},{SVC_G}]",
+        program="2u-decay",
+        kernel_ms=",".join(f"{v:.4f}" for v in kernel_ms),
+        plain_ms=",".join(f"{v:.2f}" for v in plain_ms), bytes=nbytes,
+        bytes_ms=f"{bytes_ms:.4f}", operations_ms=f"{ops_ms:.4f}",
+        operations_bound_by=ops_binding,
+        bound_share=f"{max(bytes_ms, ops_ms) / ms:.4f}", card=card)
+    say("service", kernel_busy_share=",".join(busy),
+        note="derived: dense launches x the kernel's median ms / the run's "
+             "wall time; the card idles the rest but for copies")
+    launches = sum(run["launches"] for _, run in main_runs)
+    say("service", dense_kernel_launches=launches, per_run=",".join(
+        f"{label}={run['launches']}" for label, run in main_runs),
+        stall_run=run_d["launches"], run_kernel_launches=slo_launches,
+        note="the main path's runs (a, a0, a0, a, b): one per chunk and "
+             "one per telemetry flush")
+    say("service", phase_s=f"{time.perf_counter() - phase_t0:.1f}",
+        making_chunks_s=f"{sum(make_ms) / 1e3:.1f}")
+    if min(run["launches"] for _, run in main_runs) < SVC_CHUNKS \
+            or slo_launches == 0:
+        fail("service: the main path did not go through the kernels")
+    return kernel_entry(
+        f"frugal_program_dense[service chunk: [{SVC_CHUNK_T}, {SVC_G}] "
+        "2u-decay]", KERNEL_SOURCE, TPU_KERNEL, launches, err, ms,
+        statistics.median(plain_ms), bytes_ms, ops_ms)
+
+
 def main() -> None:
     import torch
 
@@ -1350,6 +1852,7 @@ def main() -> None:
     entries = phase_timing(torch, loops, launches)
     entries += phase_scatter_timing(torch, gm, sparse_launches)
     phase_resilience(torch, gm, card)
+    entries.append(phase_service(torch, gm, card))
     torch.cuda.synchronize()
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("JAX or the JAX package was imported")

@@ -8,8 +8,16 @@ hand-written CUDA kernels (``kernels/csrc/frugal_update.cu``,
 version of the same arithmetic, which the CPU tests hold bit-for-bit
 against the JAX package. Fleets survive faults as the JAX package's do:
 seeded fault plans and lane health (``resilience``), and format-4
-checkpoints (``train.checkpoint``) that either package restores.
+checkpoints (``train.checkpoint``) that either package restores. The
+streaming service (``service``) runs on them: put-ahead staging of host
+chunks (``data.pipeline``), copy-on-query snapshots and DP-gated tenant
+reads that replay bit for bit.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (``configs.platform.resolve_device``).
 """
+
+# The subpackages, entry point first (``from repro_torch import *`` imports
+# them; ``import repro_torch`` alone imports none).
+__all__ = ["api", "service", "serve", "data", "resilience", "train",
+           "core", "kernels", "configs"]

@@ -23,8 +23,8 @@ Checkpoints (``checkpoint_state`` through ``train.checkpoint``) store the
 two words and the clock, the JAX package's layout leaf for leaf.
 
 ``check_health`` scans every lane under ``health_policy``
-(``resilience.health``). Not ported yet: ``snapshot``, which waits for the
-port of ``service.snapshot``.
+(``resilience.health``); ``snapshot`` is a ``service.snapshot.Snapshot``
+of the route fleet, host copies pinned to one cursor.
 """
 from __future__ import annotations
 
@@ -248,6 +248,18 @@ class SLOFleet:
             out[route] = {name: float(m[base + i])
                           for i, (name, _) in enumerate(self.metrics)}
         return out
+
+    def snapshot(self):
+        """Consistent copy-on-query capture of the whole route fleet, a
+        ``repro_torch.service.Snapshot`` (host copies of the query plane
+        and the per-lane clock, pending events flushed first): the read
+        path dashboards should prefer, because the answer is pinned to one
+        cursor and auditable offline, and later (donated) flushes leave it
+        as it was. Imported here: service composes serve-side pieces,
+        never the reverse at module level."""
+        self.flush()
+        from repro_torch.service.snapshot import Snapshot
+        return Snapshot.capture(self._fleet, telemetry=self.telemetry)
 
     def check_health(self):
         """Flush pending events, then scan every lane against its program's

@@ -40,12 +40,27 @@ clocks after a second flush of 2000 observations, which it also holds
 (``ckpt/slo/{routes,metrics,values}``: numpy's Zipf sampler is not the
 same in every numpy version, its lognormal sampler is).
 
+The streaming service (keys ``service/*``): the JAX package's
+``StreamingService`` over a 4096-group, q50, ``2u-decay`` fleet
+(half-life 2^16, chunk_t 64, seed 17, the e14 service deployment at small
+size) fed 4 chunks of [64, 4096] items (``service_chunk``: chunk k drawn
+from numpy seed (17, k), normal(50, 15), as e14 draws them), with a
+trusted and a "partner" tenant read (epsilon 0.8) at every chunk
+boundary. The file holds the answers and, for each chunk, its seed and
+the CRC32 of its bytes (``service/chunk_crc32``), not the chunk: a reader
+remakes the chunks and checks the CRC32s first, since another numpy may
+draw another stream from the same seed. The telemetry histogram (keys
+``telemetry/*``): the JAX package's ``Telemetry(seed=7)`` after the fixed
+observation sequence of ``telemetry_observations`` (arithmetic, no RNG),
+its latency quantiles and the lanes' planes and cursor.
+
     PYTHONPATH=src python tests/make_torch_port_golden.py
 """
 import os
 import shutil
 import sys
 import tempfile
+import zlib
 
 import numpy as np
 
@@ -72,6 +87,9 @@ CKPT_G, CKPT_CHUNK_T, CKPT_T1, CKPT_T2 = 1024, 128, 300, 200
 CKPT_SEED, CKPT_T_OFFSET, CKPT_G_OFFSET = 2024, 2 ** 31 - 150, 7
 CKPT_SLO_SEED, CKPT_SLO_CAPACITY, CKPT_SLO_ROUTES = 5, 2048, 1500
 CKPT_SLO_EVENTS = (3000, 2000)
+SERVICE_G, SERVICE_CHUNK_T, SERVICE_CHUNKS = 4096, 64, 4
+SERVICE_SEED, SERVICE_EPSILON, SERVICE_HALF_LIFE = 17, 0.8, 1 << 16
+TELEMETRY_SEED, TELEMETRY_OBSERVATIONS = 7, 300
 
 
 def random_planes(rng, prog, lanes):
@@ -380,6 +398,79 @@ def slo_continuation(data):
                                                   "values"))
 
 
+def service_chunk(k, chunk_t=SERVICE_CHUNK_T, groups=SERVICE_G):
+    """Chunk k of the service stream, as the JAX package's e14 draws it:
+    [chunk_t, groups] float32 from numpy seed (SERVICE_SEED, k)."""
+    rng = np.random.default_rng((SERVICE_SEED, k))
+    return rng.normal(50.0, 15.0, size=(chunk_t, groups)).astype(np.float32)
+
+
+def chunk_crc32(chunk) -> int:
+    return zlib.crc32(np.ascontiguousarray(chunk).tobytes())
+
+
+def telemetry_observations():
+    """[(metric, ms, flush after it)]: a third of the observations to
+    ``ingest_chunk_ms`` (20 ms higher), the rest to ``query_ms``, values
+    multiples of 0.25 (exact in float32), a flush after every 16th."""
+    out = []
+    for i in range(TELEMETRY_OBSERVATIONS):
+        ingest = i % 3 == 0
+        ms = ((i * 37) % 101) / 4.0 + (20.0 if ingest else 0.0)
+        out.append(("ingest_chunk_ms" if ingest else "query_ms", ms,
+                    i % 16 == 15))
+    return out
+
+
+def feed_telemetry(tel):
+    """``telemetry_observations`` into ``tel``; returns its latency
+    quantiles ([metric, (p50, p99)] float32 in the default metric
+    order)."""
+    for metric, ms, flush in telemetry_observations():
+        tel.observe_ms(metric, ms)
+        if flush:
+            tel.flush()
+    lat = tel.latency_quantiles()
+    return np.asarray([[lat[m]["p50"], lat[m]["p99"]]
+                       for m in ("ingest_chunk_ms", "query_ms")], np.float32)
+
+
+def golden_service():
+    """{key: array} of the JAX service's answers at every chunk boundary
+    and of the JAX telemetry histogram."""
+    from repro.api import FleetSpec
+    from repro.core.program import make_program
+    from repro.service import StreamingService, Telemetry, TenantPolicy
+
+    spec = FleetSpec(num_groups=SERVICE_G, quantiles=(0.5,),
+                     chunk_t=SERVICE_CHUNK_T, backend="jnp",
+                     program=make_program("2u-decay",
+                                          half_life=SERVICE_HALF_LIFE))
+    svc = StreamingService(spec, seed=SERVICE_SEED, tenants=[
+        TenantPolicy("partner", epsilon=SERVICE_EPSILON)])
+    raw, dp, crc = [], [], []
+    for k in range(SERVICE_CHUNKS + 1):
+        raw.append(svc.query())
+        dp.append(svc.query(tenant="partner"))
+        if k < SERVICE_CHUNKS:
+            chunk = service_chunk(k)
+            crc.append(chunk_crc32(chunk))
+            svc.ingest(chunk)
+    tel = Telemetry(seed=TELEMETRY_SEED)
+    lat = feed_telemetry(tel)
+    lanes = tel._fleet._lane_sketch()
+    out = {"service/raw": np.stack(raw), "service/dp": np.stack(dp),
+           "service/chunk_crc32": np.asarray(crc, np.int64),
+           "service/chunk_seeds": np.asarray(
+               [(SERVICE_SEED, k) for k in range(SERVICE_CHUNKS)], np.int64),
+           "telemetry/latency": lat,
+           "telemetry/cursor": np.asarray([int(x) for x in
+                                           tel._fleet.cursor], np.int64)}
+    for f in ("m", "step", "sign"):
+        out[f"telemetry/{f}"] = np.asarray(getattr(lanes, f))
+    return out
+
+
 def golden_checkpoints(root):
     """Write the JAX package's checkpoints under ``root`` (one directory
     per fleet: ``2u``, ``2u-window``, ``slo``) and return {key: array} of
@@ -434,6 +525,7 @@ def build(ckpt_root=None):
     arrays.update(sparse)
     arrays.update(golden_runs(sparse))
     arrays.update(golden_checkpoints(ckpt_root))
+    arrays.update(golden_service())
     return arrays
 
 

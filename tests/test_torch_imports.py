@@ -31,7 +31,11 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
               "repro_torch.api.fleet", "repro_torch.serve",
               "repro_torch.serve.slo", "repro_torch.resilience.chaos",
               "repro_torch.resilience.health",
-              "repro_torch.train.checkpoint"):
+              "repro_torch.train.checkpoint", "repro_torch.data",
+              "repro_torch.data.streams", "repro_torch.data.pipeline",
+              "repro_torch.service", "repro_torch.service.telemetry",
+              "repro_torch.service.snapshot", "repro_torch.service.pipeline",
+              "repro_torch.service.server"):
         assert m in mods
     code = (
         "import importlib, sys\n"
