@@ -10,12 +10,16 @@ each or more:
 
   1. device and build: the card's name and power limit, a clean build of
      both kernels (one nvcc per source, started together), registers and
-     spills per instantiation of each, and the SASS instructions in each
-     dense instantiation's tick loop;
+     spills per instantiation of each; per dense family and Q = 1..5 the
+     lanes per thread, static and dynamic shared memory, resident blocks
+     per SM, and SASS instructions per lane-tick (the tick loop's
+     instructions over its ticks and lanes per thread);
   2. dense kernel vs plain version: all six lane programs at 21,845 groups
      x 3 quantiles, T = 1024 ticks across the int32 wrap with NaN ticks,
-     block sizes 32 / 256 / 1024 and the 128-row launches, each
-     bit-identical to the plain PyTorch version run on the card;
+     block sizes 32 / 256 / 1024 and the 128-row launches, then at every
+     lanes-per-thread variant (Q = 1..5), each item producer (TMA where G %
+     4 == 0, cp.async else) and Q = 5 with both, each bit-identical to the
+     plain PyTorch version run on the card; the launches per producer;
   3. run kernel vs plain version: all six programs at 65,535 lanes, 16
      rounds of K = 4096 distinct-lane event slots (NaN events, mask-0
      slots, pads on one lane with no event, clocks across the int32 wrap),
@@ -33,8 +37,10 @@ each or more:
      q50/q90/q99, 2u, chunk_t 512), QuantileFleet.create on the card,
      ingest_stream of 8 chunks of [512, 2^22] lognormal items made on the
      card, estimate() after chunks 1, 4 and 8; the dense kernel's launch
-     count over that run; the first and last 4096 groups' lanes equal to
-     the plain version;
+     count over that run and its producer; the first and last 4096 groups'
+     lanes equal to the plain version; a torch.profiler trace of the run
+     (CUDA activity): the dense kernel's and the device's share of it and
+     the largest device activities per chunk;
   6. the sparse main path at full width: per-lane-clock QuantileFleets of
      2^16 and 2^22 lanes in turns, twice (q90, 2u), each fed 72 rounds of
      K = 4096 distinct Zipf(1.2) lanes with lognormal items made on the
@@ -46,7 +52,11 @@ each or more:
      fleet's: a second SLOFleet on the CPU);
   7. the kernels' times against their bounds and the plain versions'
      times: B1 (one launch over a [512, 2^22] chunk), B2 (the same chunk as
-     128-row launches) and B3 twice (one round of K = 4096 at L = 2^22; one
+     128-row launches); B1 at 64 and 512 ticks and B2 at 512, at the dense
+     shape (2^22 groups, Q = 3, 2u) and the service's (2^20, Q = 1,
+     2u-decay), one launch between events and launches queued back to
+     back, split into per-tick and per-launch cost, with the launch plan
+     and producer; and B3 twice (one round of K = 4096 at L = 2^22; one
      SLO-sized flush of 4096 events in runs at L = 3 x 2^20, with its
      longest run and the serial-chain floor, the longest run times one
      tick's dependent latency measured on one thread), as the
@@ -82,9 +92,11 @@ each or more:
      and telemetry histogram at 4096 groups (golden file); (f)
      SLOFleet.snapshot() at 10^6 routes x 3 metrics with events pending,
      unchanged by 3 donated flushes; (g) the token corpus staged on the
-     card, 64 batches equal to numpy's; the dense kernel at the service's
-     chunk shape against its plain version and bound; the phase's dense
-     and run kernel launches.
+     card, 64 batches equal to numpy's; one more (a) run under
+     torch.profiler: the dense kernel's and the device's share of it; the
+     dense kernel at the service's chunk shape against its plain version
+     and bound (one launch between events, and launches queued back to
+     back); the phase's dense and run kernel launches and producers.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -112,44 +124,55 @@ TPU_KERNEL_B2 = "src/repro/kernels/frugal_update.py:341"
 TPU_KERNEL_B3 = "src/repro/kernels/frugal_update.py:271"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 
-# The operations Frugal-2U needs per lane-tick, counted on its expression
+# The issue slots Frugal-2U needs per lane-tick, counted on its expression
 # tree (frugal_tick.cuh: ft_lane_hash, ft_bits_to_uniform, ft_tick_2u; the
-# same nodes as core/rng.py and core/frugal.py), not on the compiled loop.
-# Shared subexpressions count once, a compare absorbs the `and` that
-# follows it (FSETP.AND), and nothing of the loop's own bookkeeping (tick
-# counter, item pointer, branch) or the item load is counted. Each row is
-# {class: (operations, thread-operations per clock per SM on sm_90)}; the
-# rates are the CUDA C++ Programming Guide's throughput table for compute
-# capability 9.0. Rounding and selects have no row there: they are priced
-# only through the issue limit below, which can only lower the bound.
+# same nodes as core/rng.py and core/frugal.py) at one SASS instruction
+# each, with the fusions sm_90 offers: a multiply-add (IMAD) takes a
+# multiply with the add after it, a three-input logic op (LOP3) and a
+# compare with the `and` after it (FSETP.AND) one slot each, the mantissa
+# fill's shift-and-or one LEA.HI (the or adds into zero bits), and a
+# select whose one arm is the register's old value is a predicated
+# instruction, no slot of its own. Nothing of the loop's bookkeeping (tick
+# counter, item address, branch), the item and table loads or register
+# moves is counted. The count (44) is below the 45 arithmetic instructions
+# per lane-tick of the compiled tick loop (nvcc 12.8, sm_90a; PERF.md), so
+# it is a floor the kernel can be held to. Each row is {class: (slots,
+# thread-operations per clock per SM on sm_90)}; the rates are the CUDA
+# C++ Programming Guide's throughput table for compute capability 9.0.
+# Rounding and selects have no row there: they are priced only through
+# the issue limit below, which can only lower the bound.
 OPS_2U_LANE_TICK = {
-    # lane round of the counter hash: tick hash + lane key, then fmix32
-    # (3 xor-shifts, 2 multiplies); mantissa fill: shift, or.
-    "int32 add": (1, 64),
-    "int32 multiply": (2, 64),
-    "int32 shift": (4, 64),
-    "int32 bitwise": (4, 64),
+    # lane round of the counter hash: tick entry + lane id * key (IMAD),
+    # then fmix32 (3 shift-xor pairs, 2 multiplies); mantissa fill (LEA.HI).
+    "int32 multiply-add": (3, 64),
+    "int32 shift": (3, 64),
+    "int32 logic": (3, 64),
+    "int32 shift-add": (1, 64),
     # mantissa fill minus 1; 2U: step +-1 (x2), m +- ceil (x2), overshoot
-    # difference and step correction (x2 each).
+    # difference and its step correction (x2 each, the correction
+    # predicated on the overshoot).
     "fp32 add": (9, 128),
     # 2U: item vs m with u vs 1-q or q (2 each), sign > 0, sign < 0,
-    # step > 0 (x2), overshoot (x2), clamp step > 1 (x2).
+    # step > 0 (x2), overshoot (x2), clamp step > 1 with its sign (x2).
     "compare": (12, 64),
     "fp32 round (ceil)": (2, None),
-    # 2U: +-1 (x2), ceil or 1 (x2), overshoot (2 x2), clamp (x2), and the
-    # three two-way choices of m, step and sign (6).
-    "select": (16, None),
+    # 2U: +-1 (x2), ceil or 1 (x2); m: the overshoot's item or the
+    # branch's m, taken for the branch that moved (x2), then new or old
+    # (1); step: the clamp (x2), new or old (1); sign: +1 or -1 where a
+    # branch moved (1).
+    "select": (11, None),
 }
 # Decayed 2U (ft_tick_2u_decay) adds to the 2U tick: floor - (floor - step)
-# * alpha (two subtractions, one multiply), its gate (item == item, step <
-# floor) and the select of the decayed step.
+# * alpha (two subtractions, one multiply; the last subtraction predicated
+# on the gate, so the select takes no slot) and its gate (item == item,
+# step < floor).
 OPS_2U_DECAY_LANE_TICK = dict(
     OPS_2U_LANE_TICK, **{"fp32 add": (11, 128), "fp32 multiply": (1, 128),
-                         "compare": (14, 64), "select": (17, None)})
+                         "compare": (14, 64)})
 # The (seed, t) round of the hash is the same for every lane: once per
-# tick, a multiply-add and fmix32.
-OPS_TICK = {"int32 multiply": (1, 64), "int32 add": (1, 64),
-            "int32 shift": (3, 64), "int32 bitwise": (3, 64)}
+# tick, seed + t * key (IMAD) and fmix32.
+OPS_TICK = {"int32 multiply-add": (3, 64), "int32 shift": (3, 64),
+            "int32 logic": (3, 64)}
 # A sparse event also advances its lane's clock by its mask.
 OPS_CLOCK = {"int32 add": (1, 64)}
 ISSUE_PER_SM_CLOCK = 128   # 4 schedulers x 32 lanes; = the FP32 FMA rate
@@ -174,31 +197,118 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def device_trace(torch, fn):
+    """Run ``fn()`` under torch.profiler with CUDA activity only. Returns
+    (its result, {device activity: [calls, ms]}, ms the device was busy:
+    the union of the activities' intervals). The dict and the busy time
+    are None, and the reason printed, where the profiler gave no trace or
+    no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    with prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names, spans = {}, []
+    try:
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    except Exception as e:  # noqa: BLE001 — a trace is a report only
+        say("trace", note=f"no trace: {e!r}")
+        return out, None, None
+    for e in events:
+        a, b = e.time_range.start, e.time_range.end
+        name = re.sub(r"^void ", "", e.name).split("(")[0]
+        row = names.setdefault(name, [0, 0.0])
+        row[0] += 1
+        row[1] += (b - a) / 1e3
+        spans.append((a, b))
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    if not names:
+        say("trace", note="the profiler recorded no device activity")
+        return out, None, None
+    return out, names, busy / 1e3
+
+
+def say_trace(phase, names, busy_ms, window_ms, per, card, top=6):
+    """The trace's dense kernel share of ``window_ms`` and its ``top``
+    device activities, each per ``per`` (chunks). Without a trace
+    (``names`` None) the shares print as null: not measured."""
+    if names is None:
+        say("trace", of=phase, window_ms=f"{window_ms:.4f}",
+            device_busy_ms="null", device_busy_share="null",
+            dense_kernel_ms="null", dense_kernel_share="null", card=card,
+            note="no device trace: not measured")
+        return
+    dense = sum(ms for n, (_, ms) in names.items() if "frugal_dense" in n)
+    say("trace", of=phase, window_ms=f"{window_ms:.4f}",
+        device_busy_ms=f"{busy_ms:.4f}",
+        device_busy_share=f"{busy_ms / window_ms:.4f}",
+        dense_kernel_ms=f"{dense:.4f}",
+        dense_kernel_share=f"{dense / window_ms:.4f}", card=card,
+        note="torch.profiler, CUDA activity only")
+    for name, (calls, ms) in sorted(names.items(),
+                                    key=lambda kv: -kv[1][1])[:top]:
+        say("trace", of=phase, activity=name[:90], calls=calls,
+            ms_per_chunk=f"{ms / per:.4f}",
+            share=f"{ms / window_ms:.4f}")
+
+
 # --------------------------------------------------------------- phase 1
+def _template_args(mangled: str):
+    """(kernel, template int arguments) of a mangled frugal kernel name,
+    or None."""
+    m = re.search(r"(frugal_\w+_kernel)I((?:Li\d+E)+)E", mangled)
+    if not m:
+        return None
+    return m.group(1), tuple(int(v) for v in re.findall(r"Li(\d+)E",
+                                                        m.group(2)))
+
+
 def ptxas_summary(log: str, kernel: str) -> dict:
-    """{family id: (registers, spill store bytes)} of ``kernel``'s
-    instantiations, from nvcc -Xptxas -v."""
-    out, fam = {}, None
+    """{template arguments: (registers, spill store bytes, static shared
+    memory bytes)} of ``kernel``'s instantiations, from nvcc -Xptxas -v.
+    A dense instantiation's arguments are (family id, lanes per thread,
+    block-size bound)."""
+    out, key = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*(frugal_\w+_kernel)ILi"
-                      r"(\d+)E", line)
+        m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            fam = int(m.group(2)) if m.group(1) == kernel else None
+            got = _template_args(m.group(1))
+            key = got[1] if got and got[0] == kernel else None
+            continue
+        if key is None:
+            continue
+        row = out.setdefault(key, [None, None, 0])
         m = re.search(r"(\d+) bytes spill stores", line)
-        if m and fam is not None:
-            out.setdefault(fam, [None, None])[1] = int(m.group(1))
+        if m:
+            row[1] = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
-        if m and fam is not None:
-            out.setdefault(fam, [None, None])[0] = int(m.group(1))
+        if m:
+            row[0] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            row[2] = int(m.group(1))
     return {k: tuple(v) for k, v in out.items()}
 
 
-def sass_loop_instructions(so_path: Path) -> dict:
-    """{family id: instructions in the tick loop} from cuobjdump -sass.
+def sass_tick_loops(so_path: Path) -> dict:
+    """{template arguments: instructions in the tick loop} of each dense
+    instantiation, from cuobjdump -sass.
 
-    The tick loop is the longest backward branch of each instantiation;
-    sm_90 instructions are 16 bytes, so its length is the address span /16.
-    """
+    Backward branches mark loops; the tick loop is the longest innermost
+    one (no other loop inside it), which leaves out the tile loop around
+    it. sm_90 instructions are 16 bytes, so a loop's length is its
+    address span / 16."""
     from repro_torch.kernels.build import find_nvcc
 
     cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
@@ -206,48 +316,78 @@ def sass_loop_instructions(so_path: Path) -> dict:
                          capture_output=True, text=True, timeout=120)
     if out.returncode != 0:
         fail(f"cuobjdump: {out.stderr.strip()}")
-    loops, fam = {}, None
+    spans, key = {}, None
     for line in out.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            m = re.search(r"frugal_dense_kernelILi(\d+)E", m.group(1))
-            fam = int(m.group(1)) if m else None
+            got = _template_args(m.group(1))
+            key = got[1] if got and got[0] == "frugal_dense_kernel" else None
             continue
         m = re.search(r"/\*([0-9a-f]{4,})\*/.*\bBRA\b[^;]*?0x([0-9a-f]+)",
                       line)
-        if m and fam is not None:
+        if m and key is not None:
             at, target = int(m.group(1), 16), int(m.group(2), 16)
             if target < at:
-                loops[fam] = max(loops.get(fam, 0), (at - target) // 16 + 1)
+                spans.setdefault(key, []).append((target, at))
+    loops = {}
+    for key, ss in spans.items():
+        inner = [(a, b) for a, b in ss
+                 if not any(a <= c and d <= b and (c, d) != (a, b)
+                            for c, d in ss)]
+        loops[key] = max((b - a) // 16 + 1 for a, b in inner)
     return loops
 
 
+BUILD_QS = (1, 2, 3, 4, 5)     # lanes per group reported in phase 1
+
+
 def phase_build():
+    """Returns {family: SASS instructions per lane-tick at Q = 3}."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.frugal_update import FAMILY_IDS
+    from repro_torch.kernels import frugal_update as fk
 
     res = build.build_library(force=True)
-    names = {v: k for k, v in FAMILY_IDS.items()}
+    names = {v: k for k, v in fk.FAMILY_IDS.items()}
     regs = ptxas_summary(res.log, "frugal_dense_kernel")
     scatter_regs = ptxas_summary(res.log, "frugal_scatter_kernel")
-    loops = sass_loop_instructions(res.path)
-    if sorted(names) != sorted(regs) or sorted(names) != sorted(loops) \
-            or sorted(names) != sorted(scatter_regs):
+    loops = sass_tick_loops(res.path)
+    fams = sorted(names)
+    if sorted({k[0] for k in regs}) != fams or sorted(regs) != sorted(loops) \
+            or sorted(k[0] for k in scatter_regs) != fams:
         fail(f"build: dense {sorted(regs)} / loops {sorted(loops)} / "
-             f"scatter {sorted(scatter_regs)} != families {sorted(names)}"
+             f"scatter {sorted(scatter_regs)} != families {fams}"
              f"\n{res.log}")
     say("build", seconds=f"{res.seconds:.2f}", library=res.path.name,
         sources="+".join(build.KERNEL_SOURCES), note="one nvcc per source")
-    for fid in sorted(names):
-        say("build", kernel="dense", family=names[fid],
-            registers=regs[fid][0], spill_store_bytes=regs[fid][1],
-            sass_loop_instructions=loops[fid])
-    for fid in sorted(names):
-        say("build", kernel="scatter", family=names[fid],
-            registers=scatter_regs[fid][0],
-            spill_store_bytes=scatter_regs[fid][1])
     build.load_library()
-    return {names[k]: v for k, v in loops.items()}
+    per_lane_tick = {}
+    for fid in fams:
+        for q in BUILD_QS:
+            info = fk.dense_launch_info(fid, CHUNK_T, G_FULL, q)
+            # (family, lanes per thread, the block-size bound it was built
+            # for: 256, or 1024 for larger blocks)
+            key = (fid, info["lanes_per_thread"],
+                   256 if info["block_threads"] <= 256 else 1024)
+            if key not in regs:
+                fail(f"build: no dense instantiation {key} for Q = {q}")
+            r, spill, smem = regs[key]
+            lt = loops[key] / (info["ticks_per_step"]
+                               * info["lanes_per_thread"])
+            if q == len(QS):
+                per_lane_tick[names[fid]] = lt
+            say("build", kernel="dense", family=names[fid], q=q,
+                lanes_per_thread=info["lanes_per_thread"], registers=r,
+                spill_store_bytes=spill, static_smem_bytes=smem,
+                dynamic_smem_bytes=info["smem_bytes"],
+                blocks_per_sm=info["blocks_per_sm"],
+                block_threads=info["block_threads"],
+                sass_loop_instructions=loops[key],
+                ticks_per_loop=info["ticks_per_step"],
+                sass_per_lane_tick=f"{lt:.2f}")
+    for (fid,), (r, spill, _) in sorted(scatter_regs.items()):
+        say("build", kernel="scatter", family=names[fid], registers=r,
+            spill_store_bytes=spill)
+    return per_lane_tick
 
 
 # --------------------------------------------------------------- phase 2
@@ -266,6 +406,18 @@ def random_planes(torch, prog, lanes, gen, dev):
     return tuple(planes)
 
 
+# (G, Q) of phase 2: 21845 x 3 at three block sizes and as 128-row
+# launches (cp.async, G % 4 = 1); then every lanes-per-thread variant, each
+# producer, and Q = 5 (one lane per thread) with each producer.
+FAMILY_SHAPES = ((21845, 3), (21844, 3), (65536, 1), (32767, 2), (16384, 4),
+                 (13107, 5), (13108, 5))
+
+
+def producers_since(fk, before) -> str:
+    return ",".join(f"{k}={v - before[k]}"
+                    for k, v in fk.producer_launch_count.items())
+
+
 def phase_families(torch):
     from repro_torch.core import program as program_mod
     from repro_torch.kernels import frugal_update as fk
@@ -274,41 +426,54 @@ def phase_families(torch):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    g, q, t = 21845, 3, 1024
-    lanes = g * q
+    t = 1024
     t_off, g_off, seed = 2 ** 31 - 300, 12345, 777
-    items = torch.empty((t, g), device=dev).log_normal_(
+    g_max = max(g for g, _ in FAMILY_SHAPES)
+    all_items = torch.empty((t, g_max), device=dev).log_normal_(
         3.0, 1.0, generator=gen)
-    items[torch.rand((t, g), generator=gen, device=dev) < 0.03] = \
+    all_items[torch.rand((t, g_max), generator=gen, device=dev) < 0.03] = \
         float("nan")
-    items[::97] = float("nan")                       # whole NaN rows
-    quantile = torch.tensor([0.5, 0.9, 0.99], device=dev).repeat(g)
+    all_items[::97] = float("nan")                   # whole NaN rows
+    before = dict(fk.producer_launch_count)
     for prog in program_mod.test_instances():
-        planes = random_planes(torch, prog, lanes, gen, dev)
-        words = tuple(w.contiguous() for w in prog.layout.pack_planes(planes))
-        want = fk.frugal_program_dense_reference(
-            prog, items, words, quantile, seed, t_offset=t_off,
-            g_offset=g_off, lanes_per_group=q)
-        kw = dict(program=prog, t_offset=t_off, g_offset=g_off,
-                  lanes_per_group=q)
-        runs = {f"auto/block_g={bg}": (
-            lambda bg=bg: ops.frugal_update_auto(
-                items, planes, quantile, seed=seed, block_g=bg, **kw))
-            for bg in (32, 256, 1024)}
-        runs["blocked/block_g=256,block_t=128"] = (
-            lambda: ops.frugal_update_blocked(
-                items, planes, quantile, seed, block_g=256, block_t=128,
-                **kw))
-        for label, run in runs.items():
-            got_words = prog.layout.pack_planes(run())
-            torch.cuda.synchronize()
-            for i, (a, b) in enumerate(zip(got_words, want)):
-                diff = a.view(torch.int32) != b.view(torch.int32)
-                if bool(diff.any()):
-                    fail(f"{prog.family} {label}: word {i} differs from "
-                         f"the plain version in {int(diff.sum())} lane(s)")
-        say("families", program=prog.family, lanes=lanes, ticks=t,
-            runs=len(runs), result="bit-identical")
+        runs_done = 0
+        for g, q in FAMILY_SHAPES:
+            lanes = g * q
+            items = all_items[:, :g].contiguous()
+            quantile = torch.tensor([0.5, 0.9, 0.99, 0.1, 0.75][:q],
+                                    device=dev).repeat(g)
+            planes = random_planes(torch, prog, lanes, gen, dev)
+            words = tuple(w.contiguous()
+                          for w in prog.layout.pack_planes(planes))
+            want = fk.frugal_program_dense_reference(
+                prog, items, words, quantile, seed, t_offset=t_off,
+                g_offset=g_off, lanes_per_group=q)
+            kw = dict(program=prog, t_offset=t_off, g_offset=g_off,
+                      lanes_per_group=q)
+            sizes = (32, 256, 1024) if (g, q) == FAMILY_SHAPES[0] else (256,)
+            runs = {f"G={g},Q={q} auto/block_g={bg}": (
+                lambda bg=bg: ops.frugal_update_auto(
+                    items, planes, quantile, seed=seed, block_g=bg, **kw))
+                for bg in sizes}
+            if (g, q) == FAMILY_SHAPES[0]:
+                runs[f"G={g},Q={q} blocked/block_g=256,block_t=128"] = (
+                    lambda: ops.frugal_update_blocked(
+                        items, planes, quantile, seed, block_g=256,
+                        block_t=128, **kw))
+            for label, run in runs.items():
+                got_words = prog.layout.pack_planes(run())
+                torch.cuda.synchronize()
+                for i, (a, b) in enumerate(zip(got_words, want)):
+                    diff = a.view(torch.int32) != b.view(torch.int32)
+                    if bool(diff.any()):
+                        fail(f"{prog.family} {label}: word {i} differs from "
+                             f"the plain version in {int(diff.sum())} "
+                             "lane(s)")
+            runs_done += len(runs)
+        say("families", program=prog.family,
+            shapes=";".join(f"{g}x{q}" for g, q in FAMILY_SHAPES), ticks=t,
+            runs=runs_done, result="bit-identical")
+    say("families", producers=producers_since(fk, before))
 
 
 # --------------------------------------------------------------- phase 3
@@ -423,6 +588,7 @@ def phase_golden(torch, gm):
     dev = torch.device("cuda")
     items = torch.from_numpy(data["items"]).to(dev)
     quantile = torch.from_numpy(data["quantile"]).to(dev)
+    staged = dict(fk.producer_launch_count)
     for prog in program_mod.test_instances():
         n = prog.layout.num_words
         words = tuple(torch.from_numpy(data[f"{prog.family}/in{i}"]).to(dev)
@@ -438,7 +604,8 @@ def phase_golden(torch, gm):
                 fail(f"golden: {prog.family} word {i} differs from the JAX "
                      "package's output")
     say("golden", kernel="dense", programs=len(program_mod.test_instances()),
-        lanes=g * q, ticks=t, result="bit-identical to the JAX package")
+        lanes=g * q, ticks=t, producers=producers_since(fk, staged),
+        result="bit-identical to the JAX package")
     q_sparse = torch.from_numpy(data["sparse/quantile"]).to(dev)
     rounds = gm.sparse_rounds(data, lambda x: torch.from_numpy(x).to(dev))
     for prog in program_mod.test_instances():
@@ -481,7 +648,7 @@ G_FULL, QS, CHUNK_T, N_CHUNKS, EDGE = 2 ** 22, (0.5, 0.9, 0.99), 512, 8, 4096
 B2_ROWS = 128
 
 
-def phase_main_path(torch):
+def phase_main_path(torch, card):
     import numpy as np
     from repro_torch.api import FleetSpec, QuantileFleet
     from repro_torch.core import frugal
@@ -515,25 +682,32 @@ def phase_main_path(torch):
                          x[:, sample]))
             yield x
 
+    def run(fleet):
+        stream = chunks()
+        ingest_s, est_ms, estimates = 0.0, [], None
+        for n in (1, 3, 4):             # estimate() after chunks 1, 4, 8
+            t0 = time.perf_counter()
+            fleet = fleet.ingest_stream(itertools.islice(stream, n))
+            torch.cuda.synchronize()
+            ingest_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            estimates = fleet.estimate()
+            est_ms.append((time.perf_counter() - t0) * 1e3)
+            if estimates.shape != (G_FULL, len(QS)) or \
+                    not np.isfinite(estimates).all():
+                fail(f"estimate(): shape {estimates.shape}, finite "
+                     f"{np.isfinite(estimates).mean():.6f}")
+        mark()
+        return fleet, ingest_s, est_ms, estimates
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fk.launch_count = 0
-    stream = chunks()
-    ingest_s, est_ms, estimates = 0.0, [], None
-    for n in (1, 3, 4):                 # estimate() after chunks 1, 4, 8
-        t0 = time.perf_counter()
-        fleet = fleet.ingest_stream(itertools.islice(stream, n))
-        torch.cuda.synchronize()
-        ingest_s += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        estimates = fleet.estimate()
-        est_ms.append((time.perf_counter() - t0) * 1e3)
-        if estimates.shape != (G_FULL, len(QS)) or \
-                not np.isfinite(estimates).all():
-            fail(f"estimate(): shape {estimates.shape}, finite "
-                 f"{np.isfinite(estimates).mean():.6f}")
-    mark()
+    staged = dict(fk.producer_launch_count)
+    (fleet, ingest_s, est_ms, estimates), names, busy = device_trace(
+        torch, lambda: run(fleet))
     launches = fk.launch_count
+    producers = producers_since(fk, staged)
     peak = torch.cuda.max_memory_allocated()
     torch.cuda.synchronize()
     # Chunk periods on the stream (make items + kernel + packing), after
@@ -574,8 +748,8 @@ def phase_main_path(torch):
     items_total = t_total * G_FULL
     say("main", groups=G_FULL, quantiles=",".join(map(str, QS)),
         lanes=spec.num_lanes, ticks=t_total, chunks=N_CHUNKS,
-        kernel_launches=launches, edge_slices="bit-identical",
-        estimates="finite")
+        kernel_launches=launches, producers=producers,
+        edge_slices="bit-identical", estimates="finite")
     say("main", items_per_s=f"{items_total / ingest_s:.4e}",
         lane_ticks_per_s=f"{items_total * q / ingest_s:.4e}",
         ingest_s=f"{ingest_s:.4f}", note="includes making items on the card")
@@ -583,6 +757,17 @@ def phase_main_path(torch):
         median_chunk_period_ms=f"{statistics.median(periods):.4f}")
     say("main", estimate_ms=",".join(f"{v:.2f}" for v in est_ms),
         max_memory_allocated_bytes=peak)
+    # The trace covers all 8 chunks and the three estimate() calls; the
+    # kernel's share of a chunk period leaves the estimates out.
+    say_trace(5, names, busy, marks[0].elapsed_time(marks[-1]), N_CHUNKS,
+              card)
+    if names is not None:
+        per_chunk = sum(ms for n, (_, ms) in names.items()
+                        if "frugal_dense" in n) / N_CHUNKS
+        say("trace", of=5, dense_kernel_ms_per_chunk=f"{per_chunk:.4f}",
+            median_chunk_period_ms=f"{statistics.median(periods):.4f}",
+            dense_kernel_share_of_period=(
+                f"{per_chunk / statistics.median(periods):.4f}"))
     say("main", median_rel_err=",".join(f"q{int(round(qq * 100))}={r:.4f}"
                                         for qq, r in zip(QS, rel)),
         sampled_groups=EDGE, note="informational")
@@ -823,7 +1008,7 @@ def max_abs_err(planes_a, planes_b) -> float:
                                                           planes_b))
 
 
-def phase_timing(torch, loops, launches):
+def phase_timing(torch, loops, launches, card):
     """B1 (one launch over a [512, 2^22] chunk) and B2 (the same chunk as
     128-row launches, the tick offset advanced): the same function, so
     one bound."""
@@ -912,9 +1097,20 @@ def phase_timing(torch, loops, launches):
         max_sm_clock_hz=f"{clock_hz:.4e}",
         lane_ticks_per_s=f"{lane_ticks / ms * 1e3:.4e}",
         bound_share=f"{bound / ms:.4f}")
-    say("timing", sass_loop_instructions=loops["2u"],
+    say("timing", sass_per_lane_tick=f"{loops['2u']:.2f}",
         sass_issue_ms=f"{sass_ms:.4f}",
         note="diagnostic: this build's loop, not the function's need")
+    dense_split(torch, "dense", prog, items, words, quantile, q,
+                OPS_2U_LANE_TICK, card)
+    svc_prog = program_mod.make_program("2u-decay", half_life=1 << 16)
+    svc_items = torch.empty((CHUNK_T, SVC_G), device=dev).normal_(
+        50.0, 15.0, generator=gen)
+    svc_words = tuple(w.contiguous() for w in svc_prog.layout.pack_planes(
+        random_planes(torch, svc_prog, SVC_G, gen, dev)))
+    dense_split(torch, "service", svc_prog, svc_items, svc_words,
+                torch.full((SVC_G,), 0.5, device=dev), 1,
+                OPS_2U_DECAY_LANE_TICK, card)
+    del svc_items
     return [kernel_entry("frugal_program_dense", KERNEL_SOURCE, TPU_KERNEL,
                          launches, errs["kernel"], ms, plain_ms[0],
                          bytes_ms, ops_ms),
@@ -924,6 +1120,71 @@ def phase_timing(torch, loops, launches):
                          KERNEL_SOURCE, TPU_KERNEL_B2, launches,
                          errs["kernel_b2"], ms_b2, plain_b2_ms[0], bytes_ms,
                          ops_ms)]
+
+
+SPLIT_T = (64, 512)
+SPLIT_QUEUED = 10       # launches queued back to back per device timing
+
+
+def dense_split(torch, label, prog, items, words, quantile, q, work,
+                card):
+    """B1 over the first 64 and all 512 rows of ``items`` [512, G] at Q =
+    ``q``, and B2 over all 512 as 128-row launches. Two timings each: one
+    launch between CUDA events, median of 7 after a warm-up (the method of
+    the kernel table; it includes the host's enqueue where the card waits
+    for it), and the device time per launch of SPLIT_QUEUED launches queued
+    back to back (median of 5). From the queued times: the per-tick cost
+    (the difference over 448 ticks) and the per-launch rest; each length's
+    bound and share; the launch plan (tile, producer, occupancy)."""
+    from repro_torch.kernels import frugal_update as fk
+
+    g = items.shape[1]
+    lanes = g * q
+    sm_clocks_per_s, clock_hz = card_sm_clocks_per_s(torch)
+    ms, dev_ms, bound = {}, {}, {}
+
+    def b1(x):
+        return lambda: fk.frugal_program_dense(prog, x, words, quantile, 0,
+                                               lanes_per_group=q)
+
+    def b2():
+        w = words
+        for r0 in range(0, SPLIT_T[-1], B2_ROWS):
+            w = fk.frugal_program_dense(prog, items[r0:r0 + B2_ROWS], w,
+                                        quantile, 0, t_offset=r0,
+                                        lanes_per_group=q)
+
+    for t in SPLIT_T:
+        fn = b1(items[:t])
+        ms[t] = statistics.median(event_ms(torch, fn, 8)[1:])
+        dev_ms[t] = statistics.median(
+            queued_ms(torch, fn, SPLIT_QUEUED, clock_hz)[0])
+        nbytes = (t * g + lanes) * 4 + 2 * sum(
+            w.numel() * w.element_size() for w in words)
+        ops_ms, _ = operation_bound_ms(((work, t * lanes), (OPS_TICK, t)),
+                                       sm_clocks_per_s)
+        bound[t] = max(nbytes / HBM_BYTES_PER_S * 1e3, ops_ms)
+    b2_ms = statistics.median(event_ms(torch, b2, 8)[1:])
+    b2_dev = statistics.median(queued_ms(torch, b2, 3, clock_hz)[0])
+    lo, hi = SPLIT_T
+    per_tick = (dev_ms[hi] - dev_ms[lo]) / (hi - lo)
+    info = fk.dense_launch_info(fk.FAMILY_IDS[prog.kernel_family], hi, g, q,
+                                items_ptr=items.data_ptr())
+    say("timing", split=label, program=prog.family, groups=g, q=q,
+        **{f"b1_ms_t{t}": f"{ms[t]:.4f}" for t in SPLIT_T},
+        **{f"b1_device_ms_t{t}": f"{dev_ms[t]:.4f}" for t in SPLIT_T},
+        b2_ms_t512=f"{b2_ms:.4f}", b2_device_ms_t512=f"{b2_dev:.4f}",
+        **{f"bound_ms_t{t}": f"{bound[t]:.4f}" for t in SPLIT_T},
+        **{f"b1_share_t{t}": f"{bound[t] / ms[t]:.4f}" for t in SPLIT_T},
+        **{f"b1_device_share_t{t}": f"{bound[t] / dev_ms[t]:.4f}"
+           for t in SPLIT_T},
+        b2_share_t512=f"{bound[hi] / b2_ms:.4f}", card=card)
+    say("timing", split=label, us_per_tick=f"{per_tick * 1e3:.4f}",
+        ps_per_lane_tick=f"{per_tick * 1e9 / lanes:.4f}",
+        per_launch_ms=f"{dev_ms[lo] - lo * per_tick:.4f}",
+        producer=fk.PRODUCERS.get(info["producer"], "per-thread loads"),
+        **{k: v for k, v in info.items() if k != "producer"},
+        note="split from the queued device times")
 
 
 L_FLUSH = 3 * 2 ** 20          # the SLO fleet's lanes: 2^20 routes x 3
@@ -1428,6 +1689,7 @@ def service_run(torch, spec, chunks, gm, depth, reader=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fk.launch_count = 0
+    staged = dict(fk.producer_launch_count)
     t0 = time.perf_counter()
     svc.start(iter(chunks))
     rt = None
@@ -1448,7 +1710,8 @@ def service_run(torch, spec, chunks, gm, depth, reader=None):
     if errors:
         fail(f"service: the reader failed: {errors[0]!r}")
     return {"svc": svc, "tel": tel, "log": log, "wall": wall, "lat": lat,
-            "peak": torch.cuda.max_memory_allocated(), "launches": launches}
+            "peak": torch.cuda.max_memory_allocated(), "launches": launches,
+            "producers": producers_since(fk, staged)}
 
 
 def say_run(label, run, chunk_bytes, card):
@@ -1458,7 +1721,7 @@ def say_run(label, run, chunk_bytes, card):
     items = len(apply_ms) * chunk_bytes // 4
     say("service", run=label, items_per_s=f"{items / run['wall']:.4e}",
         wall_s=f"{run['wall']:.4f}", chunks=len(apply_ms),
-        dense_kernel_launches=run["launches"],
+        dense_kernel_launches=run["launches"], producers=run["producers"],
         max_memory_allocated_bytes=run["peak"], card=card)
     say("service", run=label,
         apply_ms_p50=f"{pct(apply_ms, 50):.4f}",
@@ -1518,6 +1781,12 @@ def phase_service(torch, gm, card):
         runs.setdefault(label, []).append(run)
         say_run(f"{label} depth={depth} #{len(runs[label])}", run,
                 chunk_bytes, card)
+    # One more (a) run under the profiler: the device's and the dense
+    # kernel's share of the run's wall time.
+    traced, names, busy = device_trace(
+        torch, lambda: service_run(torch, spec, chunks, gm, 1))
+    say_run("a depth=1, traced", traced, chunk_bytes, card)
+    say_trace("9a", names, busy, traced["wall"] * 1e3, SVC_CHUNKS, card)
     wall = {k: statistics.mean(r["wall"] for r in v)
             for k, v in runs.items()}
     say("service", a0_over_a=f"{wall['a'] / wall['a0']:.4f}",
@@ -1783,6 +2052,8 @@ def phase_service(torch, gm, card):
             prog, items, words, quantile, seed)
 
     kernel_ms = event_ms(torch, kernel, 11)[1:]
+    sm_clocks_per_s, clock_hz = card_sm_clocks_per_s(torch)
+    device_ms, host_us = queued_ms(torch, kernel, SPLIT_QUEUED, clock_hz)
     plain_ms = event_ms(torch, plain, 3)[1:]
     err = max_abs_err(prog.layout.unpack_words(res["kernel"]),
                       prog.layout.unpack_words(res["plain"]))
@@ -1792,24 +2063,23 @@ def phase_service(torch, gm, card):
     nbytes = (items.numel() + quantile.numel()) * 4 \
         + 2 * sum(w.numel() * w.element_size() for w in words)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    sm_clocks_per_s, _ = card_sm_clocks_per_s(torch)
     lane_ticks = SVC_CHUNK_T * SVC_G
     ops_ms, ops_binding = operation_bound_ms(
         ((OPS_2U_DECAY_LANE_TICK, lane_ticks), (OPS_TICK, SVC_CHUNK_T)),
         sm_clocks_per_s)
     ms = statistics.median(kernel_ms)
-    busy = [f"{label}={run['launches'] * ms / (run['wall'] * 1e3):.4f}"
-            for label, run in main_runs]
+    bound = max(bytes_ms, ops_ms)
     say("service", kernel="B1", chunk=f"[{SVC_CHUNK_T},{SVC_G}]",
         program="2u-decay",
         kernel_ms=",".join(f"{v:.4f}" for v in kernel_ms),
+        device_ms_queued=",".join(f"{v:.4f}" for v in device_ms),
+        host_us_per_call=",".join(f"{v:.2f}" for v in host_us),
         plain_ms=",".join(f"{v:.2f}" for v in plain_ms), bytes=nbytes,
         bytes_ms=f"{bytes_ms:.4f}", operations_ms=f"{ops_ms:.4f}",
         operations_bound_by=ops_binding,
-        bound_share=f"{max(bytes_ms, ops_ms) / ms:.4f}", card=card)
-    say("service", kernel_busy_share=",".join(busy),
-        note="derived: dense launches x the kernel's median ms / the run's "
-             "wall time; the card idles the rest but for copies")
+        bound_share=f"{bound / ms:.4f}",
+        device_bound_share=f"{bound / statistics.median(device_ms):.4f}",
+        card=card)
     launches = sum(run["launches"] for _, run in main_runs)
     say("service", dense_kernel_launches=launches, per_run=",".join(
         f"{label}={run['launches']}" for label, run in main_runs),
@@ -1847,9 +2117,9 @@ def main() -> None:
     phase_families(torch)
     phase_scatter(torch, gm)
     phase_golden(torch, gm)
-    launches = phase_main_path(torch)
+    launches = phase_main_path(torch, card)
     sparse_launches = phase_sparse_path(torch)
-    entries = phase_timing(torch, loops, launches)
+    entries = phase_timing(torch, loops, launches, card)
     entries += phase_scatter_timing(torch, gm, sparse_launches)
     phase_resilience(torch, gm, card)
     entries.append(phase_service(torch, gm, card))

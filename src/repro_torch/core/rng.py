@@ -44,10 +44,15 @@ def _fmix32(h: torch.Tensor) -> torch.Tensor:
     return h ^ srl(h, 16)
 
 
+def tick_hash(seed, t) -> torch.Tensor:
+    """The first round of ``counter_bits``: it depends on (seed, t) only,
+    so the dense kernel computes it once per tick for all lanes."""
+    return _fmix32(_i32(seed) + _i32(t) * _C_TICK)
+
+
 def counter_bits(seed, t, g) -> torch.Tensor:
     """Raw int32 hash word for stream position (t, g) under ``seed``."""
-    h = _fmix32(_i32(seed) + _i32(t) * _C_TICK)
-    return _fmix32(h + _i32(g) * _C_GROUP)
+    return _fmix32(tick_hash(seed, t) + _i32(g) * _C_GROUP)
 
 
 def counter_uniform(seed, t, g) -> torch.Tensor:

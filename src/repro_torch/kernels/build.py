@@ -53,8 +53,8 @@ def find_nvcc() -> str:
                        "the CUDA kernels build only where the toolkit is")
 
 
-def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _source_hash(flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -63,9 +63,13 @@ def _source_hash() -> str:
 
 def build_library(force: bool = False) -> BuildResult:
     """Compile the kernel library unless a build of these exact sources
-    exists (``force`` rebuilds anyway)."""
+    and flags exists (``force`` rebuilds anyway)."""
+    return _build(NVCC_FLAGS, force)
+
+
+def _build(flags, force: bool) -> BuildResult:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"libfrugal_update_{_source_hash()}.so"
+    out = BUILD_DIR / f"libfrugal_update_{_source_hash(flags)}.so"
     log_path = out.with_suffix(".log")
     if out.exists() and not force:
         log = log_path.read_text() if log_path.exists() else ""
@@ -77,7 +81,7 @@ def build_library(force: bool = False) -> BuildResult:
     t0 = time.perf_counter()
     compiles = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True))
-                for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                for cmd in ([nvcc, *flags, "-c", "-o", str(obj),
                              str(CSRC / src)]
                             for src, obj in zip(KERNEL_SOURCES, objs))]
     steps = [(cmd, proc.communicate()[0], proc.returncode)
@@ -103,23 +107,32 @@ def build_library(force: bool = False) -> BuildResult:
 _LIB: Optional[ctypes.CDLL] = None
 
 
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a loaded kernel library: every pointer
+    and the stream as ``c_void_p``, the sizes as ``c_int64``, the int32
+    scalars as ``c_int32``."""
+    fn = lib.frugal_dense_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                   + [ctypes.c_int64] * 3 + [ctypes.c_int32] * 6
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    fn = lib.frugal_dense_info
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_int64] * 3
+                   + [ctypes.c_int32] + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    fn = lib.frugal_scatter_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int32] + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int64] * 2 + [ctypes.c_int32] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use), with the C
-    signatures declared: every pointer and the stream as ``c_void_p``, the
-    sizes as ``c_int64``, the int32 scalars as ``c_int32``."""
+    """The loaded kernel library (built on first use), with its C
+    signatures declared."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build_library().path))
-        fn = lib.frugal_dense_launch
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
-                       + [ctypes.c_int64] * 3 + [ctypes.c_int32] * 6
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fn = lib.frugal_scatter_launch
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int32] + [ctypes.c_void_p] * 7
-                       + [ctypes.c_int64] * 2 + [ctypes.c_int32] * 5
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = _declare(ctypes.CDLL(str(build_library().path)))
     return _LIB

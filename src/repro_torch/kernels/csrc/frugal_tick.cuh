@@ -17,8 +17,8 @@
 //      and plain operators on the host, built with -ffp-contract=off.
 //  (4) Float literals: every constant is a float (1.0f), so `1 - q` is a
 //      float32 subtraction as in the reference, not a double one.
-//  (5) 64-bit item offsets: the item pointer advances by G (int64_t) per
-//      tick; t * G overflows int32 at full width.
+//  (5) 64-bit item offsets: a tile row's offset (t0 + r) * G is formed in
+//      int64_t; it overflows int32 at full width.
 //  (6) Tick counter: t_offset + i wraps as int32; it is added in uint32_t.
 //  (7) NaN items are no-op ticks through comparisons that are false; window
 //      restarts and decay are gated on `item == item`, as in the reference.
@@ -32,6 +32,13 @@
 #define FT_HD __host__ __device__ __forceinline__
 #else
 #define FT_HD inline
+#endif
+
+// Loop pragmas for the device compiler only (g++ would warn on them).
+#ifdef __CUDA_ARCH__
+#define FT_PRAGMA(x) _Pragma(#x)
+#else
+#define FT_PRAGMA(x)
 #endif
 
 enum FtFamily {
@@ -212,10 +219,10 @@ FT_HD void ft_window_phase(int32_t t, int32_t w, bool& reset_a,
   reset_b = boundary && parity != 0;
 }
 
-FT_HD void ft_tick_1u_window(float& m, float& m2, float item, float u,
-                             float q, int32_t t, int32_t w) {
-  bool ra, rb;
-  ft_window_phase(t, w, ra, rb);
+// The window ticks take the epoch-boundary flags of their tick (the dense
+// kernel computes them once per tick per block) or the tick itself.
+FT_HD void ft_tick_1u_window_flags(float& m, float& m2, float item,
+                                   float u, float q, bool ra, bool rb) {
   bool valid = item == item;
   ra = ra && valid;
   rb = rb && valid;
@@ -227,11 +234,17 @@ FT_HD void ft_tick_1u_window(float& m, float& m2, float item, float u,
   m2 = m_b;
 }
 
-FT_HD void ft_tick_2u_window(float& m, float& step, float& sign, float& m2,
-                             float& step2, float& sign2, float item, float u,
+FT_HD void ft_tick_1u_window(float& m, float& m2, float item, float u,
                              float q, int32_t t, int32_t w) {
   bool ra, rb;
   ft_window_phase(t, w, ra, rb);
+  ft_tick_1u_window_flags(m, m2, item, u, q, ra, rb);
+}
+
+FT_HD void ft_tick_2u_window_flags(float& m, float& step, float& sign,
+                                   float& m2, float& step2, float& sign2,
+                                   float item, float u, float q, bool ra,
+                                   bool rb) {
   bool valid = item == item;
   ra = ra && valid;
   rb = rb && valid;
@@ -247,7 +260,16 @@ FT_HD void ft_tick_2u_window(float& m, float& step, float& sign, float& m2,
   m2 = m_b; step2 = step_b; sign2 = sign_b;
 }
 
-// --------------------------------------------------------- one lane's run
+FT_HD void ft_tick_2u_window(float& m, float& step, float& sign, float& m2,
+                             float& step2, float& sign2, float item, float u,
+                             float q, int32_t t, int32_t w) {
+  bool ra, rb;
+  ft_window_phase(t, w, ra, rb);
+  ft_tick_2u_window_flags(m, step, sign, m2, step2, sign2, item, u, q, ra,
+                          rb);
+}
+
+// ------------------------------------------------------ dense group runs
 // Operands of one dense ingest call. Words are the program's serialized
 // state, unit-major (f32 head [+ i32 packed pair] per plane-pair), each [L]
 // and handled here as raw 32-bit words; unused slots are null.
@@ -296,70 +318,234 @@ inline FtDenseArgs ft_dense_args(
   return a;
 }
 
-FT_HD float ft_load(const float* p) {
+// Ticks per step of the unrolled tile loop (a multiple of 4: the tick
+// tables are read four words at a time) and the most ticks an item tile
+// holds (a multiple of 4, at most the TMA box limit). 16 and 32 from a
+// sweep of unroll 4, 8, 16 and rows 8 to 64 on an H100 (PERF.md,
+// tools/bench_b1.py sweep, which rebuilds with -D overrides of these two).
+#ifndef FT_DENSE_UNROLL
+#define FT_DENSE_UNROLL 16
+#endif
+#ifndef FT_DENSE_TILE_ROWS
+#define FT_DENSE_TILE_ROWS 32
+#endif
+#define FT_DENSE_MAX_LPT 4          // Q above this: one lane per thread
+#define FT_DENSE_TILE_BYTES 98304   // both item tile buffers, at most
+#define FT_TMA_BOX_MAX 256          // TMA box extent limit, in elements
+static_assert(FT_DENSE_UNROLL % 4 == 0, "FT_DENSE_UNROLL: a multiple of 4");
+static_assert(FT_DENSE_TILE_ROWS % 4 == 0 && FT_DENSE_TILE_ROWS >= 4 &&
+                  FT_DENSE_TILE_ROWS <= FT_TMA_BOX_MAX,
+              "FT_DENSE_TILE_ROWS: a multiple of 4 in [4, 256]");
+// The most dynamic shared memory a plan asks (ft_dense_plan's smem_bytes:
+// a tile buffer pair of at most FT_DENSE_TILE_BYTES, the tables, the
+// mbarriers).
+#define FT_DENSE_SMEM_MAX (FT_DENSE_TILE_BYTES + 16 * FT_DENSE_TILE_ROWS + 16)
+
+enum FtProducer { FT_PRODUCER_CP_ASYNC = 1, FT_PRODUCER_TMA = 2 };
+
+// How one dense call is cut. A thread holds `lpt` consecutive lanes (a
+// whole group when Q <= 4, else one lane); a block of `threads` threads
+// stages the item columns its lanes read, `cols` wide, `rows` ticks at a
+// time, in two buffers. A buffer is laid out [cols / box][rows][box] (one
+// TMA box after another), so column c of row r is at
+// ft_tile_index(p, r, c) for either producer.
+struct FtDensePlan {
+  int32_t lpt;
+  int32_t threads;
+  int32_t rows;           // ticks per tile, a multiple of 4
+  int32_t cols;           // item columns per block
+  int32_t box;            // columns per TMA box; divides cols
+  int32_t tiles;          // ceil(T / rows)
+  int32_t producer;       // FtProducer
+  int64_t blocks;
+  int64_t smem_bytes;     // two tiles, two tick-hash and two window tables,
+                          // two mbarriers
+};
+
+FT_HD int64_t ft_round_up(int64_t x, int64_t m) { return (x + m - 1) / m * m; }
+
+// TMA needs a 16-byte aligned base, a row stride G * 4 that is a multiple
+// of 16 bytes and int32 box coordinates; any other items run the cp.async
+// producer.
+inline FtDensePlan ft_dense_plan(int64_t T, int64_t G, int64_t Q,
+                                 int32_t block_g, uint64_t items_addr) {
+  FtDensePlan p;
+  p.lpt = Q <= FT_DENSE_MAX_LPT ? (int32_t)Q : 1;
+  p.threads = block_g;
+  // A block's lanes span at most (threads - 1) / Q + 2 groups when a
+  // thread holds one lane of a wider group; its tile starts up to 31
+  // columns before them (ft_tile_col0).
+  p.cols = p.lpt == Q ? block_g
+                      : (int32_t)ft_round_up((block_g - 1) / Q + 2 + 31, 32);
+  p.box = p.cols;
+  if (p.cols > FT_TMA_BOX_MAX) {
+    int32_t d = FT_TMA_BOX_MAX / 32;
+    while ((p.cols / 32) % d != 0) --d;
+    p.box = 32 * d;
+  }
+  int64_t rows = FT_DENSE_TILE_BYTES / (8 * (int64_t)p.cols);
+  if (rows > FT_DENSE_TILE_ROWS) rows = FT_DENSE_TILE_ROWS;
+  if (rows > ft_round_up(T, 4)) rows = ft_round_up(T, 4);
+  rows = rows / 4 * 4;
+  p.rows = (int32_t)(rows < 4 ? 4 : rows);
+  p.tiles = (int32_t)((T + p.rows - 1) / p.rows);
+  p.producer = (G % 4 == 0 && items_addr % 16 == 0 && T <= 0x7FFFFFFF &&
+                G <= 0x7FFFFFFF)
+                   ? FT_PRODUCER_TMA
+                   : FT_PRODUCER_CP_ASYNC;
+  const int64_t per_block = (int64_t)block_g * p.lpt;
+  p.blocks = (G * Q + per_block - 1) / per_block;
+  p.smem_bytes = 8 * (int64_t)p.rows * p.cols + 16 * (int64_t)p.rows + 16;
+  return p;
+}
+
+FT_HD int32_t ft_tile_index(const FtDensePlan& p, int32_t r, int32_t c) {
+  return (c / p.box) * p.rows * p.box + r * p.box + c % p.box;
+}
+
+// The first item column of the tile of the block whose first thread is
+// `first`: the group of its first lane, rounded down to a multiple of 32
+// columns (128 bytes), so every box starts aligned. With Q <= 4 the group
+// is `first` itself, already a multiple of 32.
+FT_HD int64_t ft_tile_col0(const FtDensePlan& p, int64_t first, int64_t Q) {
+  return first * p.lpt / Q / 32 * 32;
+}
+
+// The per-tick tables of a tile, entry j for absolute tick t0 + j: the
+// (seed, t) round of the counter hash, and for the window families the
+// epoch-boundary flags (bit 0 restarts plane a, bit 1 plane b).
+template <int FAM>
+FT_HD void ft_fill_tick_tables(uint32_t* th, uint32_t* tw, int32_t j,
+                               int32_t seed, uint32_t t0, int32_t w) {
+  const int32_t t = ft_i32(t0 + (uint32_t)j);   // wraps, hazard (6)
+  th[j] = ft_tick_hash(seed, t);
+  if (FAM == FT_1U_WINDOW || FAM == FT_2U_WINDOW) {
+    bool ra, rb;
+    ft_window_phase(t, w, ra, rb);
+    tw[j] = (ra ? 1u : 0u) | (rb ? 2u : 0u);
+  }
+}
+
+// The state of one thread's LPT lanes, in registers on the device. key is
+// the lane's absolute id times the lane-round multiplier, so a lane's
+// uniform at a tick is one add and one fmix32 on the tick's table entry.
+template <int LPT>
+struct FtGroup {
+  float m[LPT], step[LPT], sign[LPT], m2[LPT], step2[LPT], sign2[LPT];
+  float q[LPT];
+  uint32_t key[LPT];
+};
+
+// Unpack lanes lane0 .. lane0 + LPT - 1.
+template <int FAM, int LPT>
+FT_HD void ft_group_load(FtGroup<LPT>& s, const FtDenseArgs& a,
+                         int64_t lane0) {
+  FT_PRAGMA(unroll)
+  for (int l = 0; l < LPT; ++l) {
+    const int64_t lane = lane0 + l;
+    s.q[l] = a.quantile[lane];
+    s.key[l] = ((uint32_t)a.g_offset + (uint32_t)lane) * 0x85EBCA77u;
+    s.m[l] = ft_as_float(a.in[0][lane]);
+    s.step[l] = 1.0f; s.sign[l] = 1.0f;
+    s.m2[l] = 0.0f; s.step2[l] = 1.0f; s.sign2[l] = 1.0f;
+    if (FAM == FT_2U || FAM == FT_2U_DECAY || FAM == FT_2U_WINDOW)
+      ft_unpack_step_sign(a.in[1][lane], &s.step[l], &s.sign[l]);
+    if (FAM == FT_1U_WINDOW) s.m2[l] = ft_as_float(a.in[1][lane]);
+    if (FAM == FT_2U_WINDOW) {
+      s.m2[l] = ft_as_float(a.in[2][lane]);
+      ft_unpack_step_sign(a.in[3][lane], &s.step2[l], &s.sign2[l]);
+    }
+  }
+}
+
+// Repack and store lanes lane0 .. lane0 + LPT - 1.
+template <int FAM, int LPT>
+FT_HD void ft_group_store(const FtGroup<LPT>& s, const FtDenseArgs& a,
+                          int64_t lane0) {
+  FT_PRAGMA(unroll)
+  for (int l = 0; l < LPT; ++l) {
+    const int64_t lane = lane0 + l;
+    a.out[0][lane] = ft_as_bits(s.m[l]);
+    if (FAM == FT_2U || FAM == FT_2U_DECAY || FAM == FT_2U_WINDOW)
+      a.out[1][lane] = ft_pack_step_sign(s.step[l], s.sign[l]);
+    if (FAM == FT_1U_WINDOW) a.out[1][lane] = ft_as_bits(s.m2[l]);
+    if (FAM == FT_2U_WINDOW) {
+      a.out[2][lane] = ft_as_bits(s.m2[l]);
+      a.out[3][lane] = ft_pack_step_sign(s.step2[l], s.sign2[l]);
+    }
+  }
+}
+
+// One tick of the thread's LPT lanes on one item: LPT independent chains.
+template <int FAM, int LPT>
+FT_HD void ft_group_tick(FtGroup<LPT>& s, float item, uint32_t th,
+                         uint32_t tw, float alpha, float floor_) {
+  const bool ra = (tw & 1u) != 0u, rb = (tw & 2u) != 0u;
+  FT_PRAGMA(unroll)
+  for (int l = 0; l < LPT; ++l) {
+    const float u = ft_bits_to_uniform(ft_fmix32(th + s.key[l]));
+    switch (FAM) {
+      case FT_1U: ft_tick_1u(s.m[l], item, u, s.q[l]); break;
+      case FT_2U: ft_tick_2u(s.m[l], s.step[l], s.sign[l], item, u, s.q[l]);
+        break;
+      case FT_2U_DECAY:
+        ft_tick_2u_decay(s.m[l], s.step[l], s.sign[l], item, u, s.q[l],
+                         alpha, floor_);
+        break;
+      case FT_1U_WINDOW:
+        ft_tick_1u_window_flags(s.m[l], s.m2[l], item, u, s.q[l], ra, rb);
+        break;
+      case FT_2U_WINDOW:
+        ft_tick_2u_window_flags(s.m[l], s.step[l], s.sign[l], s.m2[l],
+                                s.step2[l], s.sign2[l], item, u, s.q[l], ra,
+                                rb);
+        break;
+    }
+  }
+}
+
+// Four table words from a 16-byte aligned address: one LDS.128 on the
+// device.
+FT_HD void ft_load4(const uint32_t* p, uint32_t* out) {
 #ifdef __CUDA_ARCH__
-  return __ldg(p);
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
 #else
-  return *p;
+  for (int k = 0; k < 4; ++k) out[k] = p[k];
 #endif
 }
 
-// Unpack lane `lane`'s words, run all T ticks with the state in registers,
-// repack and store. The kernel runs this once per thread; the host shim
-// once per lane.
-template <int FAM>
-FT_HD void ft_run_lane(const FtDenseArgs& a, int64_t lane) {
-  const float q = a.quantile[lane];
-  const int32_t lane_id = ft_i32((uint32_t)a.g_offset + (uint32_t)lane);
-  const float* item_p = a.items + lane / a.Q;
-  uint32_t t_abs = (uint32_t)a.t_offset;
-
-  float m = 0.0f, step = 1.0f, sign = 1.0f;
-  float m2 = 0.0f, step2 = 1.0f, sign2 = 1.0f;
-  m = ft_as_float(a.in[0][lane]);
-  if (FAM == FT_2U || FAM == FT_2U_DECAY || FAM == FT_2U_WINDOW)
-    ft_unpack_step_sign(a.in[1][lane], &step, &sign);
-  if (FAM == FT_1U_WINDOW) m2 = ft_as_float(a.in[1][lane]);
-  if (FAM == FT_2U_WINDOW) {
-    m2 = ft_as_float(a.in[2][lane]);
-    ft_unpack_step_sign(a.in[3][lane], &step2, &sign2);
-  }
-  const float alpha = ft_as_float((uint32_t)a.s0);
-  const float floor_ = ft_as_float((uint32_t)a.s1);
-
-#ifdef __CUDA_ARCH__
-#pragma unroll 1
-#endif
-  for (int64_t i = 0; i < a.T; ++i) {
-    const float item = ft_load(item_p);
-    item_p += a.G;
-    const float u = ft_bits_to_uniform(
-        ft_lane_hash(ft_tick_hash(a.seed, ft_i32(t_abs)), lane_id));
-    switch (FAM) {
-      case FT_1U: ft_tick_1u(m, item, u, q); break;
-      case FT_2U: ft_tick_2u(m, step, sign, item, u, q); break;
-      case FT_2U_DECAY:
-        ft_tick_2u_decay(m, step, sign, item, u, q, alpha, floor_);
-        break;
-      case FT_1U_WINDOW:
-        ft_tick_1u_window(m, m2, item, u, q, ft_i32(t_abs), a.s0);
-        break;
-      case FT_2U_WINDOW:
-        ft_tick_2u_window(m, step, sign, m2, step2, sign2, item, u, q,
-                          ft_i32(t_abs), a.s0);
-        break;
+// The thread's lanes through the first n ticks of a staged tile: tick i
+// reads its item at col[i * stride] and its table entries th[i] (and
+// tw[i]). Ticks run FT_DENSE_UNROLL per step with 32-bit counters; the
+// last n % FT_DENSE_UNROLL one at a time. The kernel runs this once per
+// tile on each thread; the host shim likewise on a host tile.
+template <int FAM, int LPT>
+FT_HD void ft_run_group(FtGroup<LPT>& s, const float* col, int32_t stride,
+                        const uint32_t* th, const uint32_t* tw, int32_t n,
+                        float alpha, float floor_) {
+  constexpr int U = FT_DENSE_UNROLL;
+  constexpr bool WIN = FAM == FT_1U_WINDOW || FAM == FT_2U_WINDOW;
+  int32_t i = 0;
+  FT_PRAGMA(unroll 1)
+  for (; i + U <= n; i += U) {
+    uint32_t h[U], w[U];
+    float x[U];
+    FT_PRAGMA(unroll)
+    for (int k = 0; k < U; k += 4) {
+      ft_load4(th + i + k, h + k);
+      if (WIN) ft_load4(tw + i + k, w + k);
     }
-    t_abs += 1u;
+    FT_PRAGMA(unroll)
+    for (int k = 0; k < U; ++k) x[k] = col[(i + k) * stride];
+    FT_PRAGMA(unroll)
+    for (int k = 0; k < U; ++k)
+      ft_group_tick<FAM, LPT>(s, x[k], h[k], WIN ? w[k] : 0u, alpha, floor_);
   }
-
-  a.out[0][lane] = ft_as_bits(m);
-  if (FAM == FT_2U || FAM == FT_2U_DECAY || FAM == FT_2U_WINDOW)
-    a.out[1][lane] = ft_pack_step_sign(step, sign);
-  if (FAM == FT_1U_WINDOW) a.out[1][lane] = ft_as_bits(m2);
-  if (FAM == FT_2U_WINDOW) {
-    a.out[2][lane] = ft_as_bits(m2);
-    a.out[3][lane] = ft_pack_step_sign(step2, sign2);
-  }
+  FT_PRAGMA(unroll 1)
+  for (; i < n; ++i)
+    ft_group_tick<FAM, LPT>(s, col[i * stride], th[i], WIN ? tw[i] : 0u,
+                            alpha, floor_);
 }
 
 // ------------------------------------------------------ sparse event runs

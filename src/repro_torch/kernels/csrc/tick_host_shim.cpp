@@ -1,7 +1,67 @@
-// Host build of frugal_tick.cuh for the CPU tests: the kernel's per-lane
-// arithmetic, compiled by g++ (-ffp-contract=off) and called through ctypes.
+// Host build of frugal_tick.cuh for the CPU tests: the kernels' per-lane
+// arithmetic and the dense kernel's tile loop, compiled by g++
+// (-ffp-contract=off) and called through ctypes.
 // Built by tests/test_torch_kernels.py; not part of the CUDA build.
+#include <vector>
+
 #include "frugal_tick.cuh"
+
+// The dense kernel's tiles on the host: each block's threads, one after
+// another, through the same plan, tick tables and group body
+// (ft_run_group) as on the card. Each tile is staged as the TMA producer
+// stages it: rows and columns outside [T, G] read as zeros (no lane reads
+// them).
+template <int FAM, int LPT>
+static void ft_host_dense_blocks(const FtDenseArgs& a, const FtDensePlan& p) {
+  std::vector<float> tile((size_t)p.rows * p.cols);
+  std::vector<uint32_t> th(p.rows), tw(p.rows);
+  std::vector<FtGroup<LPT>> st(p.threads);
+  const float alpha = ft_as_float((uint32_t)a.s0);
+  const float floor_ = ft_as_float((uint32_t)a.s1);
+  for (int64_t b = 0; b < p.blocks; ++b) {
+    const int64_t first = b * p.threads;
+    const int64_t g0 = ft_tile_col0(p, first, a.Q);
+    for (int32_t j = 0; j < p.threads; ++j) {
+      const int64_t lane0 = (first + j) * LPT;
+      if (lane0 < a.L) ft_group_load<FAM, LPT>(st[j], a, lane0);
+    }
+    for (int32_t k = 0; k < p.tiles; ++k) {
+      const int64_t t0 = (int64_t)k * p.rows;
+      for (int32_t r = 0; r < p.rows; ++r)
+        for (int32_t c = 0; c < p.cols; ++c)
+          tile[ft_tile_index(p, r, c)] =
+              (t0 + r < a.T && g0 + c < a.G)
+                  ? a.items[(t0 + r) * a.G + g0 + c] : 0.0f;
+      for (int32_t i = 0; i < p.rows; ++i)
+        ft_fill_tick_tables<FAM>(th.data(), tw.data(), i, a.seed,
+                                 (uint32_t)a.t_offset + (uint32_t)t0, a.s0);
+      const int32_t n = (int32_t)(a.T - t0 < p.rows ? a.T - t0 : p.rows);
+      for (int32_t j = 0; j < p.threads; ++j) {
+        const int64_t lane0 = (first + j) * LPT;
+        if (lane0 >= a.L) continue;
+        const int32_t c = (int32_t)(lane0 / a.Q - g0);
+        ft_run_group<FAM, LPT>(st[j], tile.data() + ft_tile_index(p, 0, c),
+                               p.box, th.data(), tw.data(), n, alpha,
+                               floor_);
+      }
+    }
+    for (int32_t j = 0; j < p.threads; ++j) {
+      const int64_t lane0 = (first + j) * LPT;
+      if (lane0 < a.L) ft_group_store<FAM, LPT>(st[j], a, lane0);
+    }
+  }
+}
+
+template <int FAM>
+static int ft_host_dense_lpt(const FtDenseArgs& a, const FtDensePlan& p) {
+  switch (p.lpt) {
+    case 1: ft_host_dense_blocks<FAM, 1>(a, p); return 0;
+    case 2: ft_host_dense_blocks<FAM, 2>(a, p); return 0;
+    case 3: ft_host_dense_blocks<FAM, 3>(a, p); return 0;
+    case 4: ft_host_dense_blocks<FAM, 4>(a, p); return 0;
+    default: return 1;
+  }
+}
 
 extern "C" {
 
@@ -62,26 +122,44 @@ int ft_host_tick(int family, int64_t n, float* m, float* step, float* sign,
   return 0;
 }
 
-// The kernel's whole per-lane program, run for every lane in turn.
+// The dense kernel's whole launch (block_g threads a block, tiles at most
+// FT_DENSE_TILE_ROWS ticks tall), run on the host. Writes the launch's
+// plan to plan_out = {lanes per thread, tile rows, tile columns, box
+// columns, tiles, blocks} when it is not null.
 int ft_host_dense(int family, const float* items, const float* quantile,
                   const void* in0, const void* in1, const void* in2,
                   const void* in3, void* out0, void* out1, void* out2,
                   void* out3, int64_t T, int64_t G, int64_t Q, int32_t seed,
-                  int32_t t_offset, int32_t g_offset, int32_t s0, int32_t s1) {
+                  int32_t t_offset, int32_t g_offset, int32_t s0, int32_t s1,
+                  int32_t block_g, int64_t* plan_out) {
+  if (block_g <= 0 || block_g % 32 != 0 || T <= 0 || G <= 0 || Q <= 0)
+    return 1;
   const FtDenseArgs a = ft_dense_args(items, quantile, in0, in1, in2, in3,
                                       out0, out1, out2, out3, T, G, Q, seed,
                                       t_offset, g_offset, s0, s1);
-  for (int64_t lane = 0; lane < a.L; ++lane) {
-    switch (family) {
-      case FT_1U: ft_run_lane<FT_1U>(a, lane); break;
-      case FT_2U: ft_run_lane<FT_2U>(a, lane); break;
-      case FT_2U_DECAY: ft_run_lane<FT_2U_DECAY>(a, lane); break;
-      case FT_1U_WINDOW: ft_run_lane<FT_1U_WINDOW>(a, lane); break;
-      case FT_2U_WINDOW: ft_run_lane<FT_2U_WINDOW>(a, lane); break;
-      default: return 1;
-    }
+  const FtDensePlan p = ft_dense_plan(T, G, Q, block_g,
+                                      (uint64_t)(uintptr_t)items);
+  if (plan_out) {
+    const int64_t v[6] = {p.lpt, p.rows, p.cols, p.box, p.tiles, p.blocks};
+    for (int i = 0; i < 6; ++i) plan_out[i] = v[i];
   }
-  return 0;
+  switch (family) {
+    case FT_1U: return ft_host_dense_lpt<FT_1U>(a, p);
+    case FT_2U: return ft_host_dense_lpt<FT_2U>(a, p);
+    case FT_2U_DECAY: return ft_host_dense_lpt<FT_2U_DECAY>(a, p);
+    case FT_1U_WINDOW: return ft_host_dense_lpt<FT_1U_WINDOW>(a, p);
+    case FT_2U_WINDOW: return ft_host_dense_lpt<FT_2U_WINDOW>(a, p);
+    default: return 1;
+  }
+}
+
+// A tile's tick-hash table for ticks t0 .. t0 + n - 1 (t0 wraps in
+// uint32_t), as the kernel fills it.
+void ft_host_tick_table(int64_t n, int32_t seed, int32_t t0, uint32_t* th) {
+  std::vector<uint32_t> tw(1);
+  for (int64_t i = 0; i < n; ++i)
+    ft_fill_tick_tables<FT_2U>(th, tw.data(), (int32_t)i, seed,
+                               (uint32_t)t0, 0);
 }
 
 // The run kernel's whole batch: every run's head walks its run

@@ -21,9 +21,13 @@ runs one round at a time. It replaces the JAX package's
 
 ``launch_count`` counts dense kernel launches and ``scatter_launch_count``
 scatter kernel launches (and nothing else), so a run can show that its
-path went through the kernels.
+path went through the kernels; ``producer_launch_count`` splits the dense
+launches by the producer that staged their item tiles (TMA, or cp.async
+where the row stride G * 4 is not a multiple of 16 bytes).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -36,6 +40,19 @@ FAMILY_IDS = {"1u": 0, "2u": 1, "2u-decay": 2, "1u-window": 3,
 
 launch_count = 0
 scatter_launch_count = 0
+
+# The dense kernel's threads per CUDA block, from a sweep of
+# tools/bench_b1.py on an H100 with the kernel's tile rows and tick unroll
+# (build-time constants of csrc/frugal_tick.cuh; PERF.md).
+DEFAULT_BLOCK_G = 256
+_INFO_FIELDS = ("lanes_per_thread", "ticks_per_step", "tile_rows",
+                "tile_cols", "smem_bytes", "producer", "blocks_per_sm",
+                "grid_blocks", "box_cols")
+# The dense kernel's item producers, by FtProducer id; the wrapper counts
+# its launches by producer.
+PRODUCERS = {1: "cp.async", 2: "tma"}
+producer_launch_count = dict.fromkeys(PRODUCERS.values(), 0)
+_ENCODE_ERROR_BASE = 1000   # FT_ENCODE_ERROR_BASE of csrc/frugal_update.cu
 
 
 def _scalar_slots(program, scalars):
@@ -84,16 +101,42 @@ def frugal_program_dense_reference(program, items, words, quantile, seed,
     return layout.pack_planes(planes)
 
 
+def dense_launch_info(family, t_len, groups, lanes_per_group,
+                      block_g=DEFAULT_BLOCK_G, items_ptr=0):
+    """The dense kernel's launch at [t_len, groups] with ``lanes_per_group``
+    lanes per group, as the CUDA library plans it: lanes per thread, ticks
+    per unrolled step, the item tile's rows and columns, dynamic shared
+    memory bytes, the item producer (a key of ``PRODUCERS``), resident
+    blocks per SM from the runtime's occupancy calculator, grid blocks and
+    the TMA box's columns. ``family`` is a ``FAMILY_IDS`` value. Needs the
+    card."""
+    from .build import load_library
+
+    out = (ctypes.c_int64 * len(_INFO_FIELDS))()
+    err = load_library().frugal_dense_info(
+        family, t_len, groups, lanes_per_group, block_g, items_ptr, out)
+    if err != 0:
+        raise RuntimeError(f"frugal_dense_info failed: cudaError_t {err}")
+    info = dict(zip(_INFO_FIELDS, out))
+    info["block_threads"] = block_g
+    return info
+
+
 def frugal_program_dense(program, items, words, quantile, seed,
                          scalars=None, *, t_offset=0, g_offset=0,
-                         lanes_per_group=1, block_g=256):
+                         lanes_per_group=1, block_g=DEFAULT_BLOCK_G):
     """Ingest ``items`` [T, G] into the state ``words`` (each [G·Q]) with
     one kernel launch; returns new word tensors.
 
     Lane l reads item column ``l // lanes_per_group``; its uniform at row i
     is ``counter_uniform(seed, t_offset + i, g_offset + l)``. ``block_g``
-    is the CUDA block size (a multiple of 32, at most 1024). CPU tensors
-    run the plain version; CUDA tensors launch the kernel or raise.
+    is the CUDA block size (a multiple of 32, at most 1024): with Q =
+    ``lanes_per_group`` at most 4 each thread holds one group's Q lanes,
+    so a block stages and ticks ``block_g`` groups; with Q above 4 each
+    thread holds one lane, so a block ticks ``block_g`` lanes. The result
+    does not depend on it. CPU tensors run the plain version; CUDA tensors
+    launch the kernel or raise (a failed launch or tensor-map encode
+    included).
     """
     global launch_count
     if items.device.type == "cpu":
@@ -125,16 +168,23 @@ def frugal_program_dense(program, items, words, quantile, seed,
     ptr_out = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
     from .build import load_library
 
+    producer = ctypes.c_int32(0)
     with torch.cuda.device(items.device):
         stream = torch.cuda.current_stream(items.device).cuda_stream
         err = load_library().frugal_dense_launch(
             FAMILY_IDS[family], items.data_ptr(), quantile.data_ptr(),
             *ptr_in, *ptr_out, t_len, g, lanes_per_group,
             crng.wrap_i32(seed), crng.wrap_i32(t_offset),
-            crng.wrap_i32(g_offset), slots[0], slots[1], block_g, stream)
+            crng.wrap_i32(g_offset), slots[0], slots[1], block_g, stream,
+            ctypes.byref(producer))
+    if err <= -_ENCODE_ERROR_BASE:
+        raise RuntimeError(f"frugal_dense_launch: the items' tensor map "
+                           f"could not be encoded: CUresult "
+                           f"{-err - _ENCODE_ERROR_BASE}")
     if err != 0:
         raise RuntimeError(f"frugal_dense_launch failed: cudaError_t {err}")
     launch_count += 1
+    producer_launch_count[PRODUCERS[producer.value]] += 1
     return outs
 
 

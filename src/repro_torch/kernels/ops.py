@@ -26,7 +26,8 @@ import torch
 
 from repro_torch.core import rng as crng
 
-from .frugal_update import frugal_program_dense, frugal_program_scatter
+from .frugal_update import (DEFAULT_BLOCK_G, frugal_program_dense,
+                            frugal_program_scatter)
 
 
 def _as_seed(key=None, seed=None) -> int:
@@ -61,8 +62,9 @@ def _dense(items, planes, quantile, seed, t_offset, g_offset, program,
 
 
 def frugal_update_blocked(items, planes, quantile, seed, t_offset=0,
-                          g_offset=0, *, program, block_g: int = 256,
-                          block_t: int = 256, lanes_per_group: int = 1):
+                          g_offset=0, *, program,
+                          block_g: int = DEFAULT_BLOCK_G, block_t: int = 256,
+                          lanes_per_group: int = 1):
     """The dense ingest as launches of ``block_t`` rows, ``block_g``
     threads per CUDA block. Bit-identical for every block shape."""
     if block_t <= 0:
@@ -74,7 +76,7 @@ def frugal_update_blocked(items, planes, quantile, seed, t_offset=0,
 
 def frugal_update_auto(items, planes, quantile, key=None, *, seed=None,
                        program, t_offset=0, g_offset=0, lanes_per_group=1,
-                       block_g: int = 256):
+                       block_g: int = DEFAULT_BLOCK_G):
     """The dense ingest as one launch over all of ``items``. ``key`` (an
     int or uint32 key words) or ``seed`` gives the counter seed."""
     return _dense(items, planes, quantile, _as_seed(key, seed), t_offset,

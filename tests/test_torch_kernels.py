@@ -3,10 +3,14 @@
 * CPU: ``kernels.ops.frugal_update_blocked`` / ``frugal_update_auto`` (the
   plain PyTorch version on CPU tensors) vs the JAX grid kernel in interpret
   mode and the JAX auto path; the committed golden file; and the kernel's
-  own per-lane arithmetic (``csrc/frugal_tick.cuh``) built for the host
-  with g++ and held against the port's plain functions.
+  own arithmetic (``csrc/frugal_tick.cuh``) built for the host with g++:
+  its per-lane functions against the port's plain ones, its tick-hash
+  table against ``core.rng``, and its whole tiled launch
+  (``ft_host_dense``) against the JAX scan at every tile edge.
 * Card (marker ``cuda``, skipped without a CUDA device): the CUDA kernel
-  vs the plain version on the card, every program, three block shapes.
+  vs the plain version on the card, every program, three block shapes,
+  Q = 1..5, T at the tile edges, both item producers; and B2's block-shape
+  invariance across block sizes.
 
 Tolerance everywhere: bit-exact (float32 compared as int32 bit patterns).
 JAX is imported inside the tests that use it: the card tests run where JAX
@@ -14,6 +18,7 @@ is not installed (``--noconftest``, see README.md).
 """
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -36,6 +41,11 @@ PROGS = tprogram.test_instances()
 IDS = [p.family for p in PROGS]
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src", "repro_torch", "kernels", "csrc")
+# The most ticks a dense item tile holds (FT_DENSE_TILE_ROWS, a build-time
+# constant of the kernel header).
+with open(os.path.join(CSRC, "frugal_tick.cuh")) as _f:
+    TILE = int(re.search(r"#define FT_DENSE_TILE_ROWS (\d+)",
+                         _f.read()).group(1))
 
 
 def jax_side(family):
@@ -194,8 +204,10 @@ def tick_lib(tmp_path_factory):
     lib.ft_host_window_phase.argtypes = [i64, p, i32, p, p]
     lib.ft_host_tick.argtypes = [i, i64] + [p] * 9 + [i32] * 3
     lib.ft_host_tick.restype = i
-    lib.ft_host_dense.argtypes = [i] + [p] * 10 + [i64] * 3 + [i32] * 5
+    lib.ft_host_dense.argtypes = ([i] + [p] * 10 + [i64] * 3 + [i32] * 6
+                                  + [p])
     lib.ft_host_dense.restype = i
+    lib.ft_host_tick_table.argtypes = [i64, i32, i32, p]
     return lib
 
 
@@ -312,14 +324,13 @@ def test_header_tick_matches_program_tick(tick_lib, prog):
                           f"{prog.family} t={t}")
 
 
-@pytest.mark.parametrize("tprog", PROGS, ids=IDS)
-def test_header_dense_run_matches_jax(tick_lib, tprog):
-    """The kernel's whole per-lane program (ft_run_lane), host-built, vs
-    the JAX scan: words in, T ticks across the int32 wrap, words out."""
+def host_dense_vs_jax(tick_lib, tprog, g, q, t, t_off, g_off, seed,
+                      block_g, case_seed):
+    """The dense kernel's launch run on the host (ft_host_dense: the plan,
+    tick tables, staged tiles and ft_run_group) against the JAX scan
+    ``program_process_seeded``, bit-exact; returns the launch's plan."""
     jnp, jfrugal, _, jprog = jax_side(tprog.family)
-    g, q, t = 30, 3, 400
-    items, quantile, planes = make_case(tprog, g, q, t, seed=8)
-    t_off, g_off, seed = 2 ** 31 - 200, 2 ** 31 - 50, 99
+    items, quantile, planes = make_case(tprog, g, q, t, seed=case_seed)
     layout = jprog.layout
     jp, _ = jfrugal.program_process_seeded(
         jprog, tuple(jnp.asarray(p) for p in planes), jnp.asarray(items),
@@ -332,12 +343,67 @@ def test_header_dense_run_matches_jax(tick_lib, tprog):
     pin = [ptr(w) for w in words] + [None] * (4 - len(words))
     pout = [ptr(o) for o in outs] + [None] * (4 - len(outs))
     sc = tprog.scalar_values() + (0, 0)
+    plan = np.zeros(6, np.int64)
     rc = tick_lib.ft_host_dense(
         tkernel.FAMILY_IDS[tprog.kernel_family], ptr(items), ptr(quantile),
-        *pin, *pout, t, g, q, seed, t_off, trng.wrap_i32(g_off), sc[0],
-        sc[1])
+        *pin, *pout, t, g, q, seed, trng.wrap_i32(t_off),
+        trng.wrap_i32(g_off), sc[0], sc[1], block_g, ptr(plan))
     assert rc == 0
-    assert_bits_equal(outs, want, tprog.family)
+    assert_bits_equal(outs, want, f"{tprog.family} G={g} Q={q} T={t}")
+    return dict(zip(("lpt", "rows", "cols", "box", "tiles", "blocks"),
+                    plan.tolist()))
+
+
+@pytest.mark.parametrize("tprog", PROGS, ids=IDS)
+def test_header_dense_run_matches_jax(tick_lib, tprog):
+    """The kernel's whole launch (ft_host_dense), host-built, vs the JAX
+    scan: words in, T ticks across the int32 wrap in 13 tiles, words
+    out, at the default block size."""
+    plan = host_dense_vs_jax(tick_lib, tprog, 30, 3, 400, 2 ** 31 - 200,
+                             2 ** 31 - 50, 99, tkernel.DEFAULT_BLOCK_G, 8)
+    assert plan["tiles"] == -(-400 // TILE)
+
+
+TILE_TICKS = (1, TILE - 1, TILE + 3, 2 * TILE + 1)
+TILE_GROUPS = (36, 37, 39)          # G % 4 = 0, 1, 3
+
+
+@pytest.mark.parametrize("t", TILE_TICKS)
+@pytest.mark.parametrize("q", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("tprog", PROGS, ids=IDS)
+def test_header_dense_tiles_match_jax(tick_lib, tprog, q, t):
+    """Every tile edge of the kernel's launch, host-built, vs the JAX scan:
+    Q = 1..5 (Q = 5 one lane per thread), T short of, just past and
+    twice past a tile, a ragged G (cycling through G % 4 = 0, 1, 3), ticks
+    from within 64 of 2^31 across the int32 wrap, absolute lane ids
+    across it too, 32-thread blocks (several per launch)."""
+    g = TILE_GROUPS[(TILE_TICKS.index(t) + q) % len(TILE_GROUPS)]
+    plan = host_dense_vs_jax(tick_lib, tprog, g, q, t, 2 ** 31 - 20,
+                             2 ** 31 - 70, 4321, 32, 100 + 7 * q + t)
+    assert plan["lpt"] == (q if q <= 4 else 1)
+    assert plan["tiles"] == -(-t // plan["rows"])
+    assert plan["rows"] == (TILE if t >= TILE else -(-t // 4) * 4)
+    assert plan["blocks"] > 1
+
+
+@pytest.mark.parametrize("seed", [0, 99, -2 ** 31, 2 ** 31 - 1])
+def test_header_tick_table_is_counter_first_round(tick_lib, seed):
+    """The dense kernel's shared tick-hash table (ft_fill_tick_tables) is
+    the first round of ``counter_bits`` (``core.rng.tick_hash``), the
+    ticks wrapping at int32; the lane round on top gives counter_bits."""
+    for t0 in (0, -1, 2 ** 31 - 40, -2 ** 31, 123456):
+        n = 96
+        th = np.empty(n, np.uint32)
+        tick_lib.ft_host_tick_table(n, seed, t0, ptr(th))
+        ticks = torch.from_numpy(((np.arange(n, dtype=np.int64) + t0 + 2 ** 31)
+                                  % 2 ** 32 - 2 ** 31).astype(np.int32))
+        np.testing.assert_array_equal(th.view(np.int32),
+                                      trng.tick_hash(seed, ticks).numpy())
+        lanes = torch.arange(n, dtype=torch.int32) * 7919
+        np.testing.assert_array_equal(
+            trng.counter_bits(seed, ticks, lanes).numpy(),
+            trng._fmix32(torch.from_numpy(th.view(np.int32))
+                         + lanes * trng._C_GROUP).numpy())
 
 
 # ---------------------------------------------------------------- the card
@@ -348,26 +414,40 @@ def _need_card():
 
 
 CARD_BLOCKS = [(32, None), (256, 128), (1024, 77)]
+# (Q, T, G): the tile edges of the host tests at card widths. G % 4 == 0
+# stages item tiles by TMA, any other G by cp.async; Q = 5 holds one lane
+# per thread.
+CARD_CASES = [(3, 300, 1001), (3, 300, 1000), (1, TILE + 3, 4096),
+              (2, TILE - 1, 1003), (4, 2 * TILE + 1, 1001),
+              (5, 2 * TILE + 1, 1000), (5, 1, 1003)]
+
+
+def card_operands(prog, g, q, t, seed):
+    items, quantile, planes = make_case(prog, g, q, t, seed=seed)
+    dev = torch.device("cuda")
+    return (torch.from_numpy(items).to(dev),
+            tuple(torch.from_numpy(p).to(dev) for p in planes),
+            torch.from_numpy(quantile).to(dev))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES, ids=str)
 @pytest.mark.parametrize("block", CARD_BLOCKS, ids=str)
 @pytest.mark.parametrize("prog", PROGS, ids=IDS)
-def test_card_kernel_matches_plain_version(prog, block):
+def test_card_kernel_matches_plain_version(prog, block, case):
     """The CUDA kernel vs the plain version on the card: ragged lanes,
-    Q = 3, ticks across the wrap, NaN ticks; (block_g, block_t) with None
-    meaning one launch over all T."""
+    Q = 1..5, T at the tile edges, ticks across the wrap, NaN ticks, both
+    item producers; (block_g, block_t) with None meaning one launch over
+    all T."""
     _need_card()
-    g, q, t = 1001, 3, 300
-    items, quantile, planes = make_case(prog, g, q, t, seed=10)
-    dev = torch.device("cuda")
-    x = torch.from_numpy(items).to(dev)
-    ps = tuple(torch.from_numpy(p).to(dev) for p in planes)
-    qv = torch.from_numpy(quantile).to(dev)
+    q, t, g = case
+    x, ps, qv = card_operands(prog, g, q, t, 10)
     kw = dict(t_offset=2 ** 31 - 100, g_offset=12345, lanes_per_group=q,
               program=prog)
     block_g, block_t = block
     before = tkernel.launch_count
+    producer = "tma" if g % 4 == 0 else "cp.async"
+    staged = tkernel.producer_launch_count[producer]
     if block_t is None:
         got = tops.frugal_update_auto(x, ps, qv, seed=5, block_g=block_g,
                                       **kw)
@@ -378,12 +458,32 @@ def test_card_kernel_matches_plain_version(prog, block):
         launches = -(-t // block_t)
     torch.cuda.synchronize()
     assert tkernel.launch_count - before == launches
+    assert tkernel.producer_launch_count[producer] - staged == launches
     layout = prog.layout
     want = tkernel.frugal_program_dense_reference(
         prog, x, tuple(w.contiguous() for w in layout.pack_planes(ps)), qv,
         5, t_offset=kw["t_offset"], g_offset=kw["g_offset"],
         lanes_per_group=q)
     assert_bits_equal(layout.pack_planes(got), want, prog.family)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1000, 1001], ids=["tma", "cp.async"])
+@pytest.mark.parametrize("prog", PROGS, ids=IDS)
+def test_card_block_g_changes_nothing(prog, g):
+    """B2's contract on the redesigned kernel: the same rows launched with
+    another block_g (and nothing else changed) give the same words, for
+    each producer."""
+    _need_card()
+    q, t = 3, 2 * TILE + 5
+    x, ps, qv = card_operands(prog, g, q, t, 11)
+    kw = dict(t_offset=2 ** 31 - 30, g_offset=77, lanes_per_group=q,
+              program=prog, block_t=TILE + 1)
+    runs = [prog.layout.pack_planes(tops.frugal_update_blocked(
+        x, ps, qv, 9, block_g=bg, **kw)) for bg in (32, 96, 256, 512, 1024)]
+    torch.cuda.synchronize()
+    for got in runs[1:]:
+        assert_bits_equal(got, runs[0], prog.family)
 
 
 @pytest.mark.cuda
