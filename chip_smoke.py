@@ -96,12 +96,32 @@ each or more:
      torch.profiler: the dense kernel's and the device's share of it; the
      dense kernel at the service's chunk shape against its plain version
      and bound (one launch between events, and launches queued back to
-     back); the phase's dense and run kernel launches and producers.
+     back); the phase's dense and run kernel launches and producers;
+ 10. the paper's evaluation through the fleet API, as
+     benchmarks/bench_groupby_tcp.py and bench_groupby_twitter.py run it
+     at full size: E3 (flow sizes and durations, 532 and 548 streams
+     padded with NaN to [11996, 532] and [11988, 548]) and E5 (2392 user
+     streams to [3198, 2392], 905 daily streams to [19990, 905]), each
+     made with the port's data.streams, its CRC32 checked against the
+     golden file first; per workload, algo 1u / 2u and q 0.5 / 0.9 one
+     FleetSpec(G, (q,), chunk_t 4096) created with the key words of
+     jax.random.PRNGKey(0) and fed the numpy block: estimates equal to the
+     JAX package's (golden file) and to the plain version on the card
+     (backend "jnp"), the fraction of streams within 0.1 relative mass
+     error, B1's launches and producer (TMA where G % 4 == 0, cp.async
+     else), ms per ingest and of B1's launches alone on the stream (CUDA
+     events), items/s, B1's share of its bound, peak device memory; a
+     FrugalEstimator (q50 and q90, 1u and 2u: B1 at G = 1) over one E3
+     stream, equal to the plain version and the JAX package's; GK,
+     q-digest and Selection on the first 40 E3 size streams at q = 0.5,
+     equal to the JAX package's, with their fraction within 0.1, memory
+     words and seconds on the host.
 
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import itertools
 import json
@@ -2097,6 +2117,243 @@ def phase_service(torch, gm, card):
         statistics.median(plain_ms), bytes_ms, ops_ms)
 
 
+# -------------------------------------------------------------- phase 10
+EVAL_REPS = 3          # timed ingests of each fleet on the stream
+# The dispatch slots Frugal-1U needs per lane-tick, counted as for 2U above:
+# the lane round of the hash and the mantissa fill (the rows of the 2U
+# table), then u vs 1-q and item vs m for each branch (4 compares, each
+# with its `and`) and the two predicated moves of m (2 fp32 adds).
+OPS_1U_LANE_TICK = {
+    "int32 multiply-add": (3, 64),
+    "int32 shift": (3, 64),
+    "int32 logic": (3, 64),
+    "int32 shift-add": (1, 64),
+    "fp32 add": (3, 128),
+    "compare": (4, 64),
+}
+EVAL_LANE_TICK = {"1u": OPS_1U_LANE_TICK, "2u": OPS_2U_LANE_TICK}
+
+
+def eval_fleet(torch, gm, name, items, dev_items, algo, q, key, data,
+               sorted_streams, card):
+    """One (workload, algo, q) fleet of phase 10; returns (B1 launches of
+    its main run, its producer, the fraction of streams within 0.1, and
+    (tag, fleet, a function that runs the plain version of the fleet on
+    the card) for the comparison after every timed part)."""
+    import numpy as np
+    from repro_torch.api import FleetSpec, QuantileFleet
+    from repro_torch.core.reference import relative_mass_error
+    from repro_torch.kernels import frugal_update as fk
+
+    t_len, g = items.shape
+    spec = FleetSpec(num_groups=g, quantiles=(q,), algo=algo,
+                     chunk_t=gm.EVAL_CHUNK_T)
+    # The main run, as the benchmark runs it: numpy items in, estimates
+    # out (host clock, so the copy to the card is in it).
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.launch_count = 0
+    staged = dict(fk.producer_launch_count)
+    t0 = time.perf_counter()
+    fleet = QuantileFleet.create(spec, key=key).ingest(items)
+    est = fleet.estimate(q)
+    main_s = time.perf_counter() - t0
+    launches = fk.launch_count
+    producers = {k: v - staged[k] for k, v in fk.producer_launch_count.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want_launches = -(-t_len // gm.EVAL_CHUNK_T)
+    producer = "tma" if g % 4 == 0 else "cp.async"
+    tag = f"{name} {algo} q{q}"
+    if launches != want_launches or producers[producer] != launches:
+        fail(f"eval {tag}: {launches} launches ({producers}), expected "
+             f"{want_launches} by {producer}")
+    golden = data[gm.eval_key(name, algo, q)]
+    if not same_answer(est, golden):
+        fail(f"eval {tag}: the estimates differ from the JAX package's")
+
+    # On the stream: the ingest of items already on the card, and B1's
+    # launches alone over the same chunks (CUDA events).
+    def ingest():
+        return QuantileFleet.create(spec, key=key).ingest(dev_items)
+
+    ingest_ms = event_ms(torch, ingest, EVAL_REPS + 1)[1:]
+    prog = spec.program
+    quantile = torch.full((g,), q, device=dev_items.device)
+    words0 = tuple(w.contiguous() for w in prog.layout.pack_planes(
+        QuantileFleet.create(spec, key=key).state.planes()))
+    res = {}
+
+    def kernel():
+        w = words0
+        for r0 in range(0, t_len, gm.EVAL_CHUNK_T):
+            w = fk.frugal_program_dense(
+                prog, dev_items[r0:r0 + gm.EVAL_CHUNK_T], w, quantile,
+                fleet.cursor.seed, t_offset=r0)
+        res["w"] = w
+
+    kernel_ms = event_ms(torch, kernel, EVAL_REPS + 1)[1:]
+    if not same_bits(torch, prog.layout.unpack_words(res["w"]),
+                     fleet.state.planes()):
+        fail(f"eval {tag}: B1's launches alone differ from the fleet's")
+    real = int(np.isfinite(items).sum())
+    sm_clocks_per_s, _ = card_sm_clocks_per_s(torch)
+    ops_ms, ops_binding = operation_bound_ms(
+        ((EVAL_LANE_TICK[algo], real), (OPS_TICK, t_len)), sm_clocks_per_s)
+    nbytes = items.size * 4 + g * 4 \
+        + 2 * sum(w.numel() * w.element_size() for w in words0)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    errs = [relative_mass_error(float(e), s, q)
+            for e, s in zip(est, sorted_streams)]
+    frac = float(np.mean([abs(e) <= 0.1 for e in errs]))
+    ms, kms = statistics.median(ingest_ms), statistics.median(kernel_ms)
+    say("eval", workload=name, algo=algo, q=q, groups=g, ticks=t_len,
+        real_items=real, b1_launches=launches, producer=producer,
+        frac_within_0_1=f"{frac:.4f}",
+        estimates="bit-identical to the JAX package's")
+    say("eval", workload=name, algo=algo, q=q,
+        ingest_ms=",".join(f"{v:.4f}" for v in ingest_ms),
+        b1_ms=",".join(f"{v:.4f}" for v in kernel_ms),
+        items_per_s=f"{real / ms * 1e3:.4e}", main_run_s=f"{main_s:.4f}",
+        bound_ms=f"{bound:.6f}", bound_by="bytes" if bytes_ms >= ops_ms
+        else f"operations ({ops_binding})",
+        b1_bound_share=f"{bound / kms:.5f}",
+        max_memory_allocated_bytes=peak, card=card)
+
+    def plain():
+        return QuantileFleet.create(dataclasses.replace(spec, backend="jnp"),
+                                    key=key).ingest(dev_items)
+
+    return launches, producer, frac, (tag, fleet, plain)
+
+
+def phase_eval(torch, gm, card):
+    """Phase 10; returns B1's launches in the phase's main runs."""
+    import numpy as np
+    from repro_torch.api import FrugalEstimator
+    from repro_torch.core import baselines
+    from repro_torch.core.reference import relative_mass_error
+    from repro_torch.data import streams
+    from repro_torch.kernels import frugal_update as fk
+
+    phase_t0 = time.perf_counter()
+    data = np.load(GOLDEN)
+    key = data["eval/key_words"]
+    launches, fracs, seen, size, checks = 0, {}, {}, None, []
+    for name in gm.EVAL_DATASETS:
+        t0 = time.perf_counter()
+        ss = gm.eval_streams(streams, name)
+        items = streams.pad_ragged(ss)
+        make_s = time.perf_counter() - t0
+        crc = gm.chunk_crc32(items)
+        if crc != int(data[f"eval/{name}/items_crc32"]) or \
+                list(items.shape) != data[f"eval/{name}/shape"].tolist():
+            fail(f"eval: numpy {np.__version__} here draws other {name} "
+                 f"streams than the golden file's (shape {items.shape}, "
+                 f"CRC32 {crc})")
+        say("eval", workload=name, streams=len(ss), padded=list(items.shape),
+            crc32=crc, crc32_golden="match", making_streams_s=f"{make_s:.2f}")
+        if name == "e3_size":
+            size = ss
+        sorted_ss = [sorted(s.tolist()) for s in ss]
+        dev_items = torch.from_numpy(items).cuda()
+        for algo in gm.EVAL_ALGOS:
+            for q in gm.EVAL_QS:
+                n, producer, frac, check = eval_fleet(
+                    torch, gm, name, items, dev_items, algo, q, key, data,
+                    sorted_ss, card)
+                checks.append(check)
+                launches += n
+                seen[producer] = seen.get(producer, 0) + n
+                fracs[(name, algo, q)] = frac
+
+    # FrugalEstimator at G = 1 (one group's lanes: q50 and q90) over E3
+    # size stream 0, by extend / insert / query.
+    estimates = {}
+    for algo in gm.EVAL_ALGOS:
+        fk.launch_count = 0
+        staged = dict(fk.producer_launch_count)
+        t0 = time.perf_counter()
+        got = gm.estimator_feed(
+            FrugalEstimator(quantiles=gm.EVAL_QS, algo=algo, seed=0), size[0])
+        est_s = time.perf_counter() - t0
+        n = fk.launch_count
+        prod = {k: v - staged[k] for k, v in fk.producer_launch_count.items()}
+        if not same_answer(got, data[f"eval/estimator/{algo}"]):
+            fail(f"eval: FrugalEstimator {algo} differs from the JAX "
+                 "package's")
+        estimates[algo] = got
+        if n == 0 or prod["cp.async"] != n:
+            fail(f"eval: FrugalEstimator {algo} made {n} launches ({prod}), "
+                 "expected cp.async launches")
+        launches += n
+        seen["cp.async"] = seen.get("cp.async", 0) + n
+        say("eval", estimator=algo, groups=1, quantiles="0.5,0.9",
+            stream_items=len(size[0]), b1_launches=n, producer="cp.async",
+            answers=",".join(f"{v:.4f}" for v in got.ravel()),
+            seconds=f"{est_s:.4f}", result="bit-identical to the JAX "
+            "package's")
+
+    # Every fleet and estimator again with the plain version on the card
+    # (backend "jnp"): the same bits.
+    plain_s = {}
+    for tag, fleet, plain in checks:
+        t0 = time.perf_counter()
+        if not same_bits(torch, plain().state.planes(),
+                         fleet.state.planes()):
+            fail(f"eval {tag}: the kernel's planes differ from the plain "
+                 "version's on the card")
+        plain_s[tag] = time.perf_counter() - t0
+    for algo in gm.EVAL_ALGOS:
+        t0 = time.perf_counter()
+        plain = gm.estimator_feed(FrugalEstimator(
+            quantiles=gm.EVAL_QS, algo=algo, seed=0, backend="jnp",
+            device="cuda"), size[0])
+        if not same_answer(plain, estimates[algo]):
+            fail(f"eval: FrugalEstimator {algo} differs from the plain "
+                 "version on the card")
+        plain_s[f"estimator {algo}"] = time.perf_counter() - t0
+    say("eval", plain_version=f"{len(plain_s)} runs on the card",
+        seconds=f"{sum(plain_s.values()):.2f}",
+        per_run_s=",".join(f"{k.replace(' ', '_')}:{v:.2f}"
+                           for k, v in plain_s.items()),
+        result="B1's planes and answers bit-identical to each")
+
+    # The baselines on the host, as benchmarks/common.py builds them.
+    q = gm.EVAL_BASELINE_Q
+    first = size[:gm.EVAL_BASELINE_STREAMS]
+    sorted_first = [sorted(s.tolist()) for s in first]
+    for i, algo in enumerate(gm.EVAL_BASELINES):
+        t0 = time.perf_counter()
+        est, words = [], []
+        for s in first:
+            b = gm.make_baseline(baselines, algo, s, q)
+            b.extend(s)
+            est.append(b.query(q))
+            words.append(b.memory_words())
+        secs = time.perf_counter() - t0
+        if est != data["eval/baselines/estimates"][i].tolist() or \
+                words != data["eval/baselines/memory_words"][i].tolist():
+            fail(f"eval: baseline {algo} differs from the JAX package's")
+        errs = [relative_mass_error(float(e), s, q)
+                for e, s in zip(est, sorted_first)]
+        say("eval", baseline=algo, streams=len(first), q=q,
+            frac_within_0_1=f"{np.mean([abs(e) <= 0.1 for e in errs]):.4f}",
+            memory_words_mean=f"{np.mean(words):.2f}",
+            memory_words_max=max(words), seconds=f"{secs:.2f}",
+            result="equal to the JAX package's")
+    for algo in gm.EVAL_ALGOS:
+        say("eval", frugal=algo, memory_words=1 if algo == "1u" else 2,
+            **{f"frac_within_0_1_{n}_q{int(qq * 100)}": f"{f:.4f}"
+               for (n, a, qq), f in fracs.items() if a == algo})
+    if set(seen) != {"tma", "cp.async"}:
+        fail(f"eval: producers seen {seen}, expected both")
+    say("eval", b1_launches=launches,
+        producers=",".join(f"{k}={v}" for k, v in sorted(seen.items())),
+        phase_s=f"{time.perf_counter() - phase_t0:.1f}", card=card)
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -2123,6 +2380,7 @@ def main() -> None:
     entries += phase_scatter_timing(torch, gm, sparse_launches)
     phase_resilience(torch, gm, card)
     entries.append(phase_service(torch, gm, card))
+    entries[0]["launches"] += phase_eval(torch, gm, card)
     torch.cuda.synchronize()
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("JAX or the JAX package was imported")

@@ -185,13 +185,16 @@ class QuantileFleet:
     def ingest(self, items) -> "QuantileFleet":
         """Ingest a [t, G] block (numpy or tensor); returns the fleet
         advanced t ticks. Bit-identical for any split of a stream into
-        successive calls."""
+        successive calls, and on either ``spec.backend``: "fused" runs
+        ``chunk_t``-row dense-kernel calls, "jnp" the plain loop
+        (``GroupedQuantileSketch.process_seeded``) over the same rows."""
         self._require_scalar_clock("ingest")
         cur = self.cursor
         sk = streaming.ingest_array(
             self.state, items, cur.seed, chunk_t=self.spec.chunk_t,
             t_offset=cur.t_offset, g_offset=cur.g_offset,
-            lanes_per_group=self.num_quantiles)
+            lanes_per_group=self.num_quantiles,
+            plain=self.spec.backend == "jnp")
         return dataclasses.replace(
             self, state=sk, cursor=cur.advance(np.shape(items)[0]))
 
@@ -225,7 +228,8 @@ class QuantileFleet:
             sk = streaming.ingest_stream(
                 self.state, counting(), cur.seed, chunk_t=chunk_t,
                 t_offset=cur.t_offset, g_offset=cur.g_offset,
-                lanes_per_group=self.num_quantiles)
+                lanes_per_group=self.num_quantiles,
+                plain=self.spec.backend == "jnp")
         except chaos.StreamInterrupted as e:
             applied = e.items_applied
             partial = dataclasses.replace(self, state=e.state,

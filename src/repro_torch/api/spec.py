@@ -14,6 +14,11 @@ from repro_torch.core.drift import DriftConfig
 from repro_torch.core.program import LaneProgram, make_program, program_for
 from repro_torch.resilience.health import HEALTH_POLICIES
 
+# The JAX package's spellable backends. "jnp" and "fused" are engines of
+# the single placement; "sharded" names a placement across devices, which
+# the port does not have yet.
+BACKENDS = ("jnp", "fused", "sharded")
+
 
 class StreamCursor(NamedTuple):
     """Absolute position of a fleet in its uniform stream.
@@ -84,6 +89,11 @@ class FleetSpec:
     quantiles  — targets per group; the fleet lays out a (G × Q) lane
                  plane, lane = g·Q + qi.
     algo       — "1u" (paper Alg. 2) or "2u" (paper Alg. 3).
+    backend    — the ingest engine: "fused" (chunked dense-kernel calls,
+                 ``core.streaming``: the CUDA kernel on the card) or "jnp"
+                 (the plain PyTorch loop, ``core.frugal
+                 .program_process_seeded``, on the fleet's device). Both
+                 give the same bits.
     chunk_t    — tick-block size of one kernel call in chunked ingest.
     drift      — legacy parameter carrier (a DriftConfig or None).
     program    — the update rule: a LaneProgram or a registered family
@@ -97,6 +107,7 @@ class FleetSpec:
     num_groups: int
     quantiles: Tuple[float, ...] = (0.5,)
     algo: str = "2u"
+    backend: str = "fused"
     chunk_t: int = 4096
     drift: Optional[DriftConfig] = None
     program: Optional[Union[str, LaneProgram]] = None
@@ -118,6 +129,14 @@ class FleetSpec:
             raise ValueError(f"algo must be '1u' or '2u', got {self.algo!r}")
         if self.chunk_t <= 0:
             raise ValueError(f"chunk_t must be positive, got {self.chunk_t}")
+        if self.backend == "sharded":
+            raise ValueError(
+                "backend='sharded' places a fleet across devices, which "
+                "waits for the parallel/ port (ROADMAP.md queue A, item 2); "
+                "use 'fused' or 'jnp'")
+        if self.backend not in ("jnp", "fused"):
+            raise ValueError(f"backend must be one of {BACKENDS}, got "
+                             f"{self.backend!r}")
         if self.health not in HEALTH_POLICIES:
             raise ValueError(
                 f"health must be one of {HEALTH_POLICIES}, got "
@@ -126,7 +145,7 @@ class FleetSpec:
             raise NotImplementedError(
                 "only the single-device placement is ported; lane-sharded "
                 "and 2-D placements wait for the parallel/ port "
-                "(ROADMAP.md queue A, item 9)")
+                "(ROADMAP.md queue A, item 2)")
         if self.drift is not None:
             self.drift.validate_for_algo(self.algo)
         prog = self.program

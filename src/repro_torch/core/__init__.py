@@ -1,2 +1,77 @@
-"""Core arithmetic of the port: counter RNG, packing, the frugal and drift
-ticks, lane programs, the sketch and chunked streaming ingest."""
+"""Core arithmetic of the port (the JAX package's ``core/``, module for
+module):
+
+  frugal.py     — Frugal-1U / Frugal-2U ticks and the program-generic
+                  ingest loop (program_process_seeded / TickCtx).
+  program.py    — LaneProgram / StateLayout and the registry of the six
+                  lane programs.
+  reference.py  — scalar pure-Python transcriptions (bit-exact oracles).
+  sketch.py     — GroupedQuantileSketch.
+  rng.py        — the counter-hash uniforms shared with the CUDA kernels.
+  packing.py    — (step, sign) -> one int32 word.
+  drift.py      — decayed 2U and the two-sketch window.
+  streaming.py  — chunked dense-kernel ingest of unbounded streams.
+  baselines/    — GK, q-digest, Selection, reservoir, exact (paper §6).
+
+The JAX package's ``batched.py`` (the binomial batch update) is not
+ported: it draws its normals from JAX's threefry generator.
+"""
+
+from .frugal import (
+    Frugal1UState,
+    Frugal2UState,
+    TickCtx,
+    frugal1u_init,
+    frugal1u_process,
+    frugal1u_update,
+    frugal2u_init,
+    frugal2u_process,
+    frugal2u_update,
+    program_process_seeded,
+)
+from .program import (
+    LaneProgram,
+    StateLayout,
+    make_program,
+    program_for,
+    registered_families,
+)
+from .sketch import GroupedQuantileSketch, PackedSketchState
+from .drift import DriftConfig, WindowState
+from .packing import (
+    PackedFrugal2UState,
+    pack_frugal2u,
+    pack_step_sign,
+    unpack_frugal2u,
+    unpack_step_sign,
+)
+from .streaming import ingest_array, ingest_stream
+
+__all__ = [
+    "Frugal1UState",
+    "Frugal2UState",
+    "TickCtx",
+    "frugal1u_init",
+    "frugal1u_process",
+    "frugal1u_update",
+    "frugal2u_init",
+    "frugal2u_process",
+    "frugal2u_update",
+    "program_process_seeded",
+    "LaneProgram",
+    "StateLayout",
+    "make_program",
+    "program_for",
+    "registered_families",
+    "GroupedQuantileSketch",
+    "PackedSketchState",
+    "DriftConfig",
+    "WindowState",
+    "PackedFrugal2UState",
+    "pack_frugal2u",
+    "pack_step_sign",
+    "unpack_frugal2u",
+    "unpack_step_sign",
+    "ingest_array",
+    "ingest_stream",
+]

@@ -16,10 +16,12 @@ so a NaN tick stays a bit-exact no-op.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.configs.platform import resolve_device
 
 from .frugal import (Frugal1UState, Frugal2UState, frugal1u_update,
                      frugal2u_update)
@@ -63,6 +65,10 @@ class DriftConfig:
         return self
 
     @property
+    def windowed(self) -> bool:
+        return self.mode == "window"
+
+    @property
     def alpha_f32(self) -> np.float32:
         """Per-tick decay factor 2^(-1/half_life), rounded once to float32
         on the host, so every backend multiplies by the same value."""
@@ -76,6 +82,13 @@ class DriftConfig:
     @property
     def floor_bits(self) -> int:
         return int(np.float32(self.floor).view(np.int32))
+
+    def operand_slots(self) -> Tuple[int, int]:
+        """The two drift scalar operands of the dense kernel:
+        (alpha_bits, floor_bits) for decay, (window, 0) for window."""
+        if self.mode == "decay":
+            return (self.alpha_bits, self.floor_bits)
+        return (int(self.window), 0)
 
 
 def is_windowed(cfg) -> bool:
@@ -161,3 +174,41 @@ def window_update(state: WindowState, items, rand, quantile, t, window,
                         quantile)
     return WindowState(m=a.m, step=a.step, sign=a.sign,
                        m2=b.m, step2=b.step, sign2=b.sign)
+
+
+def window_process_seeded(state: WindowState, items: torch.Tensor, seed,
+                          quantile, cfg: DriftConfig,
+                          return_trace: bool = False, t_offset: int = 0,
+                          g_offset: int = 0, lanes_per_group: int = 1,
+                          algo: str = "2u"
+                          ) -> Tuple[WindowState, Optional[torch.Tensor]]:
+    """[T, G] two-sketch window ingest: the generic loop with the
+    registered '{algo}-window' program. Trace rows are the queried plane's
+    estimate at each tick. For 1U only the heads (m, m2) are planes; the
+    step and sign fields come back as ones."""
+    from . import program as program_mod  # program imports this module
+    from .frugal import program_process_seeded
+
+    prog = program_mod.program_for(algo, cfg)
+    planes = (state.m, state.m2) if algo == "1u" else tuple(state)
+    planes, trace = program_process_seeded(
+        prog, planes, items, seed, quantile, return_trace=return_trace,
+        t_offset=t_offset, g_offset=g_offset,
+        lanes_per_group=lanes_per_group)
+    if algo == "1u":
+        one = torch.ones_like(planes[0])
+        return WindowState(m=planes[0], step=one, sign=one, m2=planes[1],
+                           step2=one, sign2=one), trace
+    return WindowState(*planes), trace
+
+
+def window_init(num_lanes: int, init=0.0, dtype=torch.float32,
+                device=None) -> WindowState:
+    """Fresh window pairs: both heads at ``init``, steps and signs at 1,
+    every leaf in a buffer of its own. On ``device`` (None: the card)."""
+    m = torch.broadcast_to(
+        torch.as_tensor(init, dtype=dtype, device=resolve_device(device)),
+        (num_lanes,)).clone()
+    return WindowState(m=m, step=torch.ones_like(m), sign=torch.ones_like(m),
+                       m2=m.clone(), step2=torch.ones_like(m),
+                       sign2=torch.ones_like(m))

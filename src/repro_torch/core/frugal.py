@@ -17,9 +17,11 @@ CUDA kernel and the CPU path of ``kernels.ops.frugal_update_auto``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.configs.platform import resolve_device
 
 from . import rng
 
@@ -36,6 +38,29 @@ class Frugal2UState(NamedTuple):
     m: torch.Tensor
     step: torch.Tensor
     sign: torch.Tensor
+
+
+def _init_plane(num_groups: int, init, dtype, device) -> torch.Tensor:
+    return torch.broadcast_to(
+        torch.as_tensor(init, dtype=dtype, device=resolve_device(device)),
+        (num_groups,)).clone()
+
+
+def frugal1u_init(num_groups: int, init=0.0, dtype=torch.float32,
+                  device=None) -> Frugal1UState:
+    """Fresh Frugal-1U lanes: the paper starts at m = 0; ``init`` may also
+    be the first stream item (§5), a scalar or [G]. On ``device`` (None:
+    the card)."""
+    return Frugal1UState(m=_init_plane(num_groups, init, dtype, device))
+
+
+def frugal2u_init(num_groups: int, init=0.0, dtype=torch.float32,
+                  device=None) -> Frugal2UState:
+    """Fresh Frugal-2U lanes: m at ``init``, step and sign at 1, each in a
+    buffer of its own."""
+    m = _init_plane(num_groups, init, dtype, device)
+    return Frugal2UState(m=m, step=torch.ones_like(m),
+                         sign=torch.ones_like(m))
 
 
 def _f32(q, like: torch.Tensor) -> torch.Tensor:
@@ -148,3 +173,93 @@ def program_process_seeded(program, planes, items: torch.Tensor, seed,
     if trace:
         return planes, torch.stack(trace)
     return planes, planes[0].new_empty((0, lanes))
+
+
+def frugal1u_process_seeded(state: Frugal1UState, items: torch.Tensor, seed,
+                            quantile=0.5, return_trace: bool = False,
+                            t_offset: int = 0, g_offset: int = 0,
+                            lanes_per_group: int = 1
+                            ) -> Tuple[Frugal1UState, Optional[torch.Tensor]]:
+    """[T, G] Frugal-1U ingest from an int32 counter seed: the generic
+    loop with the registered '1u' program."""
+    from . import program as program_mod  # program imports this module
+
+    planes, trace = program_process_seeded(
+        program_mod.family_base("1u"), (state.m,), items, seed, quantile,
+        return_trace=return_trace, t_offset=t_offset, g_offset=g_offset,
+        lanes_per_group=lanes_per_group)
+    return Frugal1UState(*planes), trace
+
+
+def frugal2u_process_seeded(state: Frugal2UState, items: torch.Tensor, seed,
+                            quantile=0.5, return_trace: bool = False,
+                            t_offset: int = 0, g_offset: int = 0,
+                            lanes_per_group: int = 1, drift=None
+                            ) -> Tuple[Frugal2UState, Optional[torch.Tensor]]:
+    """[T, G] Frugal-2U ingest from an int32 counter seed: the generic loop
+    with the registered '2u' program, or '2u-decay' where ``drift`` is a
+    decay ``DriftConfig``. The window rules carry a doubled plane tuple:
+    ``core.drift.window_process_seeded`` runs them."""
+    from . import program as program_mod  # program imports this module
+
+    if drift is not None and drift.mode != "decay":
+        raise ValueError(
+            "frugal2u_process_seeded handles drift mode 'decay' only; "
+            "windowed lanes carry a doubled state plane — use "
+            "core.drift.window_process_seeded")
+    planes, trace = program_process_seeded(
+        program_mod.program_for("2u", drift), tuple(state), items, seed,
+        quantile, return_trace=return_trace, t_offset=t_offset,
+        g_offset=g_offset, lanes_per_group=lanes_per_group)
+    return Frugal2UState(*planes), trace
+
+
+def _process_fed(update, state, items, rand, quantile, return_trace):
+    """The fed-uniform loop: tick i takes ``rand[i]``; the trace holds m
+    after each tick."""
+    trace = []
+    for i in range(items.shape[0]):
+        state = update(state, items[i], rand[i], quantile)
+        if return_trace:
+            trace.append(state.m)
+    if not return_trace:
+        return state, None
+    if trace:
+        return state, torch.stack(trace)
+    return state, state.m.new_empty((0,) + tuple(state.m.shape))
+
+
+def frugal1u_process(state: Frugal1UState, items: torch.Tensor, key=None,
+                     rand: Optional[torch.Tensor] = None, quantile=0.5,
+                     return_trace: bool = False, t_offset: int = 0,
+                     g_offset: int = 0, lanes_per_group: int = 1
+                     ) -> Tuple[Frugal1UState, Optional[torch.Tensor]]:
+    """Sequential [T, G] Frugal-1U ingest. With ``key`` (an int seed or
+    uint32 key words, ``rng.seed_from_key``) the uniforms are counter-hashed
+    per tick at absolute (t_offset + i, g_offset + lane). An explicit
+    [T, G] ``rand`` feeds the uniforms instead (the oracle tests' path;
+    the offsets are then unused)."""
+    if rand is None:
+        if key is None:
+            raise ValueError("frugal1u_process needs key or rand")
+        return frugal1u_process_seeded(state, items, rng.seed_from_key(key),
+                                       quantile, return_trace, t_offset,
+                                       g_offset, lanes_per_group)
+    return _process_fed(frugal1u_update, state, items, rand, quantile,
+                        return_trace)
+
+
+def frugal2u_process(state: Frugal2UState, items: torch.Tensor, key=None,
+                     rand: Optional[torch.Tensor] = None, quantile=0.5,
+                     return_trace: bool = False, t_offset: int = 0,
+                     g_offset: int = 0, lanes_per_group: int = 1
+                     ) -> Tuple[Frugal2UState, Optional[torch.Tensor]]:
+    """Sequential [T, G] Frugal-2U ingest (see ``frugal1u_process``)."""
+    if rand is None:
+        if key is None:
+            raise ValueError("frugal2u_process needs key or rand")
+        return frugal2u_process_seeded(state, items, rng.seed_from_key(key),
+                                       quantile, return_trace, t_offset,
+                                       g_offset, lanes_per_group)
+    return _process_fed(frugal2u_update, state, items, rand, quantile,
+                        return_trace)

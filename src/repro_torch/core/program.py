@@ -104,6 +104,10 @@ class StateLayout:
         return len(self.packing) > 1
 
     @property
+    def num_planes(self) -> int:
+        return len(self.plane_fields)
+
+    @property
     def word_dtypes(self):
         """Word dtypes, unit-major: f32 head [+ i32 packed pair]."""
         dts = []

@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.configs.platform import resolve_device
+
 _M1 = int(np.uint32(0x85EBCA6B).view(np.int32))
 _M2 = int(np.uint32(0xC2B2AE35).view(np.int32))
 _C_TICK = int(np.uint32(0x9E3779B9).view(np.int32))   # golden ratio
@@ -91,3 +93,13 @@ def seed_from_key(key) -> int:
     for i in range(1, data.numel()):
         seed = _fmix32(seed * _C_TICK + data[i])
     return int(seed)
+
+
+def tick_uniforms(key, num: int, device=None) -> torch.Tensor:
+    """[num] uniforms for one stream tick (monitor fleets: one item per
+    group per step): ``counter_uniform`` at t = 0 over lanes 0..num-1,
+    seeded by ``seed_from_key(key)``. Fresh uniforms per step come from
+    fresh key words per step. On ``device`` (None: the card)."""
+    lanes = torch.arange(num, dtype=torch.int32,
+                         device=resolve_device(device))
+    return counter_uniform(seed_from_key(key), 0, lanes)

@@ -18,6 +18,7 @@ from repro_torch.configs.platform import resolve_device
 
 from . import frugal
 from . import packing
+from . import rng as crng
 from .drift import DriftConfig, is_windowed
 
 
@@ -190,6 +191,36 @@ class GroupedQuantileSketch:
             drift=drift, device=device)
 
     # -------------------------------------------------------------- ingest
+    def update(self, items: torch.Tensor,
+               rand: torch.Tensor) -> "GroupedQuantileSketch":
+        """One tick, one item per lane, with fed uniforms (items and rand
+        [L]). Vanilla lanes only: the drift rules key on the absolute tick,
+        which this call does not carry."""
+        if self.drift is not None:
+            raise ValueError(
+                "update(items, rand) carries no stream tick; drift-aware "
+                "sketches need the absolute tick — use process_seeded or "
+                "repro_torch.api.QuantileFleet")
+        if self.algo == "1u":
+            st = frugal.frugal1u_update(frugal.Frugal1UState(self.m), items,
+                                        rand, self.quantile)
+            return dataclasses.replace(self, m=st.m)
+        st = frugal.frugal2u_update(
+            frugal.Frugal2UState(self.m, self.step, self.sign), items, rand,
+            self.quantile)
+        return dataclasses.replace(self, m=st.m, step=st.step, sign=st.sign)
+
+    def process(self, items, key, g_offset: int = 0,
+                lanes_per_group: int = 1) -> "GroupedQuantileSketch":
+        """Sequential ingest of [T, G] items (numpy or tensor, moved to the
+        sketch's device) from ``key``: an int seed or uint32 key words,
+        folded by ``rng.seed_from_key``; the stream starts at tick 0."""
+        items = torch.as_tensor(items, dtype=torch.float32,
+                                device=self.device)
+        return self.process_seeded(items, crng.seed_from_key(key),
+                                   g_offset=g_offset,
+                                   lanes_per_group=lanes_per_group)
+
     def process_seeded(self, items: torch.Tensor, seed, t_offset=0,
                        g_offset=0, lanes_per_group: int = 1
                        ) -> "GroupedQuantileSketch":
@@ -201,3 +232,12 @@ class GroupedQuantileSketch:
             t_offset=t_offset, g_offset=g_offset,
             lanes_per_group=lanes_per_group)
         return self.with_planes(planes)
+
+
+def sketch_update_jit(sk: GroupedQuantileSketch, items: torch.Tensor,
+                      rand: torch.Tensor, algo: str = "2u"
+                      ) -> GroupedQuantileSketch:
+    """``sk.update(items, rand)`` under the JAX package's name (there a
+    jitted function; ``algo`` is unused, as there)."""
+    del algo
+    return sk.update(items, rand)

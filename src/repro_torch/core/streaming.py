@@ -125,11 +125,16 @@ def _to_device(block, device) -> torch.Tensor:
 
 
 def _apply_chunk(sk: GroupedQuantileSketch, chunk: torch.Tensor, seed,
-                 t_offset, g_offset=0, lanes_per_group=1):
+                 t_offset, g_offset=0, lanes_per_group=1, plain=False):
     """One dense-kernel call over a [chunk_t, G] block at absolute
-    ``t_offset`` for every registered program."""
+    ``t_offset`` for every registered program; ``plain`` runs the plain
+    loop (``process_seeded``) instead, on the sketch's device."""
     from repro_torch.kernels import ops
 
+    if plain:
+        return sk.process_seeded(chunk, seed, t_offset=t_offset,
+                                 g_offset=g_offset,
+                                 lanes_per_group=lanes_per_group)
     planes = ops.frugal_update_auto(
         chunk, sk.planes(), sk.quantile, seed=seed, program=sk.program,
         t_offset=t_offset, g_offset=g_offset,
@@ -139,13 +144,14 @@ def _apply_chunk(sk: GroupedQuantileSketch, chunk: torch.Tensor, seed,
 
 def ingest_stream(sketch: GroupedQuantileSketch, chunks: Iterable, seed,
                   chunk_t: int = 4096, g_offset: int = 0, t_offset: int = 0,
-                  *, lanes_per_group: int = 1,
-                  skip_items: int = 0) -> GroupedQuantileSketch:
+                  *, lanes_per_group: int = 1, skip_items: int = 0,
+                  plain: bool = False) -> GroupedQuantileSketch:
     """Ingest an unbounded stream of [t_i, G] blocks in [chunk_t, G] kernel
     calls. ``seed`` is the int32 counter seed (``core.rng.seed_from_key``),
     ``t_offset`` the absolute tick of the first item, ``g_offset`` the
     absolute lane id of lane 0; ``lanes_per_group`` = Q drives a G·Q lane
-    sketch from G-column blocks.
+    sketch from G-column blocks. ``plain=True`` applies each block with
+    the plain loop instead of the kernel (the same bits).
 
     Crash consistency: if the chunk iterator raises mid-stream, the error is
     re-raised as a resumable ``chaos.StreamInterrupted`` whose ``state``
@@ -187,7 +193,7 @@ def ingest_stream(sketch: GroupedQuantileSketch, chunks: Iterable, seed,
                 state=sketch, items_applied=applied) from e
         sketch = _apply_chunk(sketch, _to_device(block, sketch.device), seed,
                               crng.wrap_i32(t_offset + t0), g_offset,
-                              lanes_per_group)
+                              lanes_per_group, plain)
         applied = min(consumed[0], applied + chunk_t)
         sketch = chaos.corrupt_sketch(sketch, t_offset + int(t0),
                                       t_offset + int(t0) + chunk_t)
@@ -202,9 +208,11 @@ def ingest_stream(sketch: GroupedQuantileSketch, chunks: Iterable, seed,
 
 def ingest_array(sketch: GroupedQuantileSketch, items, seed,
                  chunk_t: int = 4096, g_offset: int = 0, *, t_offset=0,
-                 lanes_per_group: int = 1) -> GroupedQuantileSketch:
+                 lanes_per_group: int = 1,
+                 plain: bool = False) -> GroupedQuantileSketch:
     """Ingest a [T, G] array in ``chunk_t``-row kernel calls (views, no
-    copies; the tail is one shorter call). Bit-identical to
+    copies; the tail is one shorter call), or with ``plain=True`` in
+    plain-loop calls over the same rows. Bit-identical to
     ``ingest_stream`` over any chunking of ``items``."""
     if chunk_t <= 0:
         raise ValueError(f"chunk_t must be positive, got {chunk_t}")
@@ -220,11 +228,11 @@ def ingest_array(sketch: GroupedQuantileSketch, items, seed,
     return ingest_slabs(sketch, [items[r:r + chunk_t]
                                  for r in range(0, t, chunk_t)],
                         offsets, seed, g_offset,
-                        lanes_per_group=lanes_per_group)
+                        lanes_per_group=lanes_per_group, plain=plain)
 
 
 def ingest_slabs(sketch: GroupedQuantileSketch, slabs, offsets, seed,
-                 g_offset, *, lanes_per_group: int = 1
+                 g_offset, *, lanes_per_group: int = 1, plain: bool = False
                  ) -> GroupedQuantileSketch:
     """Apply item slabs to ``sketch`` in order, slab k at absolute tick
     ``offsets[k]`` (wrapped to int32). NaN rows are no-ops, so slabs may be
@@ -233,5 +241,5 @@ def ingest_slabs(sketch: GroupedQuantileSketch, slabs, offsets, seed,
     for slab, off in zip(slabs, offsets):
         sketch = _apply_chunk(sketch, _to_device(slab, sketch.device), seed,
                               crng.wrap_i32(int(off)), g_offset,
-                              lanes_per_group)
+                              lanes_per_group, plain)
     return sketch

@@ -54,6 +54,21 @@ draw another stream from the same seed. The telemetry histogram (keys
 observation sequence of ``telemetry_observations`` (arithmetic, no RNG),
 its latency quantiles and the lanes' planes and cursor.
 
+The paper's evaluation (keys ``eval/*``): the GROUPBY workloads of
+``benchmarks/bench_groupby_tcp.py`` (E3, Figures 6-7: flow sizes and
+durations, 100 sites x 6 months) and ``bench_groupby_twitter.py`` (E5,
+Figures 10-11: 4554 users, 905 days) at their full sizes, each padded
+with NaN into one [T, G] block (``eval_items``). For each the file holds
+the CRC32 of the block's bytes and its shape (not the block: another
+numpy may draw other streams), and the JAX fleet's estimates at q in
+{0.5, 0.9} and algo in {1u, 2u} (``FleetSpec(num_groups=G,
+quantiles=(q,), algo=...)`` created with ``key=jax.random.PRNGKey(0)``,
+whose key words the file holds too). Beside them: the JAX package's GK
+(20 tuples), q-digest (b = 20) and Selection on the first 40 E3 size
+streams at q = 0.5 (``make_baseline``, as ``benchmarks/common.py`` builds
+them), and a ``FrugalEstimator`` (q50 and q90, seed 0) fed E3 size stream
+0 in pieces (``estimator_feed``).
+
     PYTHONPATH=src python tests/make_torch_port_golden.py
 """
 import os
@@ -90,6 +105,10 @@ CKPT_SLO_EVENTS = (3000, 2000)
 SERVICE_G, SERVICE_CHUNK_T, SERVICE_CHUNKS = 4096, 64, 4
 SERVICE_SEED, SERVICE_EPSILON, SERVICE_HALF_LIFE = 17, 0.8, 1 << 16
 TELEMETRY_SEED, TELEMETRY_OBSERVATIONS = 7, 300
+EVAL_DATASETS = ("e3_size", "e3_duration", "e5_user", "e5_daily")
+EVAL_QS, EVAL_ALGOS, EVAL_CHUNK_T, EVAL_KEY = (0.5, 0.9), ("1u", "2u"), 4096, 0
+EVAL_BASELINES = ("gk20", "qdigest20", "selection")
+EVAL_BASELINE_STREAMS, EVAL_BASELINE_Q = 40, 0.5
 
 
 def random_planes(rng, prog, lanes):
@@ -471,6 +490,92 @@ def golden_service():
     return out
 
 
+def eval_streams(streams_mod, name, quick=False):
+    """The streams of one evaluation workload, from ``streams_mod`` (the
+    JAX package's ``data.streams`` or the port's copy), drawn as the
+    benchmarks draw them at seed 0; ``quick`` is their quick size."""
+    if name.startswith("e3_"):
+        kind = name[3:]
+        return streams_mod.tcp_like_group_streams(
+            num_sites=30 if quick else 100, num_months=6, kind=kind,
+            rng=np.random.default_rng(zlib.crc32(kind.encode()) % 100))
+    if name == "e5_user":
+        return streams_mod.twitter_like_interval_streams(
+            num_users=600 if quick else 4554, rng=np.random.default_rng(0))
+    return streams_mod.daily_combined_interval_streams(
+        num_days=150 if quick else 905, rng=np.random.default_rng(1))
+
+
+def eval_key(name, algo, q):
+    return f"eval/{name}/{algo}_q{int(round(q * 100))}"
+
+
+def make_baseline(baselines_mod, algo, stream, q, seed=0):
+    """A baseline summary as ``benchmarks/common.py`` builds it."""
+    if algo == "gk20":
+        return baselines_mod.GKSummary(eps=0.001, max_tuples=20)
+    if algo == "qdigest20":
+        return baselines_mod.QDigest(sigma=int(max(np.max(stream), 2)) + 1,
+                                     b=20)
+    return baselines_mod.Selection(quantile=q, seed=seed)
+
+
+def estimator_feed(est, stream):
+    """Feed ``stream`` to a ``FrugalEstimator`` tracking EVAL_QS: a third
+    by ``extend``, five items by ``insert``, the rest by ``extend``, with
+    both answers after the first third and at the end ([2, 2] float32)."""
+    a = len(stream) // 3
+    est.extend(stream[:a])
+    out = [[est.query(q) for q in EVAL_QS]]
+    for v in stream[a:a + 5]:
+        est.insert(float(v))
+    est.extend(stream[a + 5:])
+    out.append([est.query(q) for q in EVAL_QS])
+    return np.asarray(out, np.float32)
+
+
+def golden_eval():
+    """{key: array} of the JAX package's answers on the evaluation
+    workloads."""
+    import jax
+    from repro.api import FleetSpec, FrugalEstimator, QuantileFleet
+    from repro.core import baselines
+    from repro.data import streams
+
+    key = jax.random.PRNGKey(EVAL_KEY)
+    out = {"eval/key_words": np.asarray(jax.random.key_data(key))}
+    for name in EVAL_DATASETS:
+        items = streams.pad_ragged(eval_streams(streams, name))
+        out[f"eval/{name}/items_crc32"] = np.asarray(chunk_crc32(items),
+                                                     np.int64)
+        out[f"eval/{name}/shape"] = np.asarray(items.shape, np.int64)
+        for algo in EVAL_ALGOS:
+            for q in EVAL_QS:
+                spec = FleetSpec(num_groups=items.shape[1], quantiles=(q,),
+                                 algo=algo, chunk_t=EVAL_CHUNK_T,
+                                 backend="jnp")
+                fleet = QuantileFleet.create(spec, key=key).ingest(items)
+                out[eval_key(name, algo, q)] = np.asarray(
+                    fleet.estimate(q), np.float32)
+    size = eval_streams(streams, "e3_size")
+    est, words = [], []
+    for algo in EVAL_BASELINES:
+        row, mem = [], []
+        for s in size[:EVAL_BASELINE_STREAMS]:
+            b = make_baseline(baselines, algo, s, EVAL_BASELINE_Q)
+            b.extend(s)
+            row.append(b.query(EVAL_BASELINE_Q))
+            mem.append(b.memory_words())
+        est.append(row)
+        words.append(mem)
+    out["eval/baselines/estimates"] = np.asarray(est, np.float64)
+    out["eval/baselines/memory_words"] = np.asarray(words, np.int64)
+    for algo in EVAL_ALGOS:
+        out[f"eval/estimator/{algo}"] = estimator_feed(
+            FrugalEstimator(quantiles=EVAL_QS, algo=algo, seed=0), size[0])
+    return out
+
+
 def golden_checkpoints(root):
     """Write the JAX package's checkpoints under ``root`` (one directory
     per fleet: ``2u``, ``2u-window``, ``slo``) and return {key: array} of
@@ -526,6 +631,7 @@ def build(ckpt_root=None):
     arrays.update(golden_runs(sparse))
     arrays.update(golden_checkpoints(ckpt_root))
     arrays.update(golden_service())
+    arrays.update(golden_eval())
     return arrays
 
 

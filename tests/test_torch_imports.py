@@ -35,7 +35,15 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
               "repro_torch.data.streams", "repro_torch.data.pipeline",
               "repro_torch.service", "repro_torch.service.telemetry",
               "repro_torch.service.snapshot", "repro_torch.service.pipeline",
-              "repro_torch.service.server"):
+              "repro_torch.service.server", "repro_torch.core.reference",
+              "repro_torch.core.baselines", "repro_torch.core.baselines.gk",
+              "repro_torch.core.baselines.qdigest",
+              "repro_torch.core.baselines.selection",
+              "repro_torch.core.baselines.reservoir",
+              "repro_torch.core.baselines.exact",
+              "repro_torch.core.baselines.protocol",
+              "repro_torch.api.estimators", "repro_torch.api.lint",
+              "repro_torch.kernels.ref"):
         assert m in mods
     code = (
         "import importlib, sys\n"
