@@ -115,7 +115,31 @@ each or more:
      stream, equal to the plain version and the JAX package's; GK,
      q-digest and Selection on the first 40 E3 size streams at q = 0.5,
      equal to the JAX package's, with their fraction within 0.1, memory
-     words and seconds on the host.
+     words and seconds on the host;
+ 11. placement across devices through the fleet API, per-device fleets on
+     repeated entries of cuda:0 (the port's counterpart of a forced host
+     device count) and loop-mode fleets: (a) E15 at its full size
+     (benchmarks/bench_mesh2d.py: 2^20 groups, q50, 2u, chunk_t 64, the
+     [512, 2^20] block of numpy seed 0, its CRC32 checked first) under a
+     single placement, TopologySpec(lanes=8), (data=2, lanes=4) per device
+     and in loop mode, each fed the host block: 1-D equal to single, 2 x 4
+     per device equal to loop mode and to the JAX package's CRC32s, a split
+     at row 301 equal to one ingest; then the elastic sequence (rows 0-255
+     under 2 x 4, reshard to 4 x 2, rows 256-511, sync on the card equal to
+     the numpy fold, reshard back, grow_groups(2^20 + 2^16), a checkpoint
+     restored onto single, 1-D x 8 and 4 x 2, a quarantine of one replica's
+     non-finite lane), each step against the golden CRC32s; ms per host-fed
+     ingest, B1's device ms per ingest (torch.profiler), launches and
+     producer, sync, reshard and checkpoint ms, peak memory and the
+     device's busy share of a traced 2 x 4 ingest; (b) phase 5's dense cell
+     under TopologySpec(data=2) (loop mode) fed phase 5's 8 chunks made on
+     the card: each replica equal to a single fleet that ran only its
+     chunks at their absolute offsets, the merged estimate and the card's
+     sync equal to the numpy fold, ms per chunk period beside phase 5's;
+     (c) the six programs at 1000 groups x 2 quantiles, T = 700, chunk_t 64
+     under TopologySpec(data=3, lanes=2) in both modes: replica and merged
+     planes equal to the golden file's, the card's sync at R = 3 equal to
+     the numpy fold.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -791,7 +815,7 @@ def phase_main_path(torch, card):
     say("main", median_rel_err=",".join(f"q{int(round(qq * 100))}={r:.4f}"
                                         for qq, r in zip(QS, rel)),
         sampled_groups=EDGE, note="informational")
-    return launches
+    return launches, statistics.median(periods)
 
 
 # --------------------------------------------------------------- phase 6
@@ -2354,6 +2378,422 @@ def phase_eval(torch, gm, card):
     return launches
 
 
+# -------------------------------------------------------------- phase 11
+E15_REPS = 3           # timed host-fed ingests per placement, after one
+E15_SPLIT = 301        # the split ingest's cut (E15's call split)
+E15_BAD_LANE = 12345   # the lane whose m word one replica loses
+CARD = "cuda:0"        # the device per-device topologies repeat
+
+
+def e15_placements():
+    """E15's placements: None is the single placement."""
+    from repro_torch.api import TopologySpec
+
+    card8 = (CARD,) * 8
+    return {"single": None,
+            "1d_x8": TopologySpec(lanes=8, devices=card8),
+            "2x4": TopologySpec(data=2, lanes=4, devices=card8),
+            "2x4_loop": TopologySpec(data=2, lanes=4)}
+
+
+def replica_crc32s(gm, fleet):
+    return gm.plane_crc32s(fleet.state.replica_planes())
+
+
+def check_crc32s(what, got, want):
+    import numpy as np
+
+    if not np.array_equal(got, want):
+        fail(f"placement: {what}: CRC32s {got.tolist()} differ from the "
+             f"JAX package's {want.tolist()}")
+
+
+def with_bad_lane(fleet, replica, lane):
+    """``fleet`` (a 2-D fleet) with replica ``replica``'s m word of lane
+    ``lane`` made NaN, in a copy of that shard's m tensor."""
+    rep = fleet.state.replicas[replica]
+    w = rep.shard_groups
+    s, i = divmod(lane, w)
+    sh = rep.shards[s]
+    m = sh.m.clone()
+    m[i] = float("nan")
+    shards = rep.shards[:s] + (dataclasses.replace(sh, m=m),) \
+        + rep.shards[s + 1:]
+    reps = list(fleet.state.replicas)
+    reps[replica] = dataclasses.replace(rep, shards=shards)
+    return dataclasses.replace(fleet, state=dataclasses.replace(
+        fleet.state, replicas=tuple(reps)))
+
+
+def e15_run(torch, gm, items, card):
+    """Phase 11 (a): E15 at full size; returns the B1 launches expected
+    of its timed ingests."""
+    import numpy as np
+    from repro_torch.api import FleetSpec, QuantileFleet, TopologySpec
+    from repro_torch.kernels import frugal_update as fk
+    from repro_torch.parallel import merge_replica_planes
+    from repro_torch.train import elastic
+
+    data = np.load(GOLDEN)
+    g, t_len = gm.E15_G, items.shape[0]
+    chunks = -(-t_len // gm.E15_CHUNK_T)
+
+    def spec(topo, groups=g):
+        return FleetSpec(num_groups=groups, quantiles=(0.5,),
+                         chunk_t=gm.E15_CHUNK_T, topology=topo)
+
+    # The block's pageable host-to-device copy alone (host clock), the
+    # first part of every host-fed ingest.
+    h2d_ms = [timed(torch, lambda: torch.from_numpy(items).to(CARD))[1]
+              for _ in range(2)]
+    say("place", e15_block_h2d_ms=",".join(f"{v:.4f}" for v in h2d_ms),
+        bytes=items.nbytes, card=card, note="host clock, pageable numpy")
+    if torch.cuda.device_count() < 8:
+        try:
+            TopologySpec(lanes=8).resolve()
+        except ValueError:
+            pass
+        else:
+            fail("placement: TopologySpec(lanes=8) resolved with "
+                 f"{torch.cuda.device_count()} card(s) and no devices")
+    # B1 launches per ingest of the whole block, from the chunk routing: a
+    # 2 x 4 call rounds its chunks up to a multiple of 2 with NaN chunks.
+    rounded = -(-chunks // 2) * 2
+    want = {"single": chunks, "1d_x8": 8 * chunks, "2x4": 4 * rounded,
+            "2x4_loop": rounded}
+    fleets = {}
+    for name, topo in e15_placements().items():
+        fresh = QuantileFleet.create(spec(topo), seed=gm.E15_SEED)
+        mode = type(fresh.state).__name__ if topo is None or \
+            topo.data == 1 else fresh.state.mode
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = fk.launch_count
+        staged = dict(fk.producer_launch_count)
+        fleet, first_ms = timed(torch, lambda: fresh.ingest(items))
+        launches = fk.launch_count - before
+        producers = producers_since(fk, staged)
+        if launches != want[name]:
+            fail(f"placement {name}: {launches} B1 launches per ingest, "
+                 f"expected {want[name]}")
+        ms = [timed(torch, lambda: fresh.ingest(items))[1]
+              for _ in range(E15_REPS)]
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        _, names, busy = device_trace(torch, lambda: fresh.ingest(items))
+        window_ms = (time.perf_counter() - t0) * 1e3
+        b1_ms = None if names is None else sum(
+            v for n, (_, v) in names.items() if "frugal_dense" in n)
+        med = statistics.median(ms)
+        say("place", e15=name, mode=mode, b1_launches=launches,
+            producers=producers, first_ingest_ms=f"{first_ms:.4f}",
+            ingest_ms=",".join(f"{v:.4f}" for v in ms),
+            items_per_s=f"{items.size / med * 1e3:.4e}",
+            b1_device_ms="null" if b1_ms is None else f"{b1_ms:.4f}",
+            traced_window_ms=f"{window_ms:.4f}",
+            device_busy_share="null" if busy is None
+            else f"{busy / window_ms:.4f}",
+            max_memory_allocated_bytes=peak, card=card,
+            note="host clock, numpy items in")
+        if name == "2x4":
+            say_trace(11, names, busy, window_ms, 1, card)
+        fleets[name] = fleet
+
+    single = fleets["single"]
+    est = single.estimate()
+    if gm.chunk_crc32(est) != int(data["place/e15/single/estimate_crc32"]):
+        fail("placement: the single fleet's estimates differ from the JAX "
+             "package's")
+    one_d = fleets["1d_x8"]
+    if not same_bits(torch, one_d._lane_sketch().planes(),
+                     single.state.planes()) or \
+            not np.array_equal(one_d.estimate().view(np.int32),
+                               est.view(np.int32)):
+        fail("placement: the 1-D x 8 fleet differs from the single fleet")
+    dev, loop = fleets["2x4"], fleets["2x4_loop"]
+    if dev.state.mode != "devices" or loop.state.mode != "loop":
+        fail(f"placement: modes {dev.state.mode}, {loop.state.mode}")
+    for a, b in zip(dev.state.replica_planes(), loop.state.replica_planes()):
+        if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+            fail("placement: 2 x 4 per device differs from loop mode")
+    check_crc32s("2 x 4 replicas", replica_crc32s(gm, dev),
+                 data["place/e15/full/replica_crc32"])
+    if gm.chunk_crc32(dev.estimate()) != \
+            int(data["place/e15/full/estimate_crc32"]):
+        fail("placement: the 2 x 4 merged estimates differ from the JAX "
+             "package's")
+    fresh = QuantileFleet.create(spec(e15_placements()["2x4"]),
+                                 seed=gm.E15_SEED)
+    split = fresh.ingest(items[:E15_SPLIT]).ingest(items[E15_SPLIT:])
+    check_crc32s("2 x 4 split at row 301", replica_crc32s(gm, split),
+                 data["place/e15/full/replica_crc32"])
+    say("place", e15="checks", single_estimates="JAX package's",
+        one_d="bit-identical to single",
+        two_by_four="per device = loop mode = JAX package's CRC32s",
+        split_at_301="equal to one ingest",
+        merged_estimates="JAX package's")
+    del fleets, single, one_d, dev, loop, split
+
+    # The elastic sequence.
+    card8 = (CARD,) * 8
+    t24 = TopologySpec(data=2, lanes=4, devices=card8)
+    t42 = TopologySpec(data=4, lanes=2, devices=card8)
+    half = t_len // 2
+    fl = fresh.ingest(items[:half])
+    check_crc32s("elastic: rows 0-255 under 2 x 4", replica_crc32s(gm, fl),
+                 data["place/e15/elastic/half"])
+    est = fl.estimate()
+    fl, grow_ms = timed(torch, lambda: fl.reshard(t42))
+    if not np.array_equal(fl.estimate().view(np.int32), est.view(np.int32)):
+        fail("placement: reshard 2 x 4 -> 4 x 2 moved the estimate")
+    fl = fl.ingest(items[half:])
+    check_crc32s("elastic: rows 256-511 under 4 x 2", replica_crc32s(gm, fl),
+                 data["place/e15/elastic/ingested"])
+    prog = fl.spec.program
+    folded = merge_replica_planes(prog, fl.state.replica_planes())
+    fl, sync_ms = timed(torch, fl.sync)
+    for p, want_p in zip(fl.state.replica_planes(), folded):
+        if not all(np.array_equal(p[r].view(np.int32), want_p.view(np.int32))
+                   for r in range(p.shape[0])):
+            fail("placement: the card's sync at R = 4 differs from the "
+                 "numpy fold")
+    check_crc32s("elastic: sync", replica_crc32s(gm, fl),
+                 data["place/e15/elastic/synced"])
+    est = fl.estimate()
+    if gm.chunk_crc32(est) != int(data["place/e15/elastic/estimate_crc32"]):
+        fail("placement: the synced estimates differ from the JAX "
+             "package's")
+    fl, shrink_ms = timed(torch, lambda: fl.reshard(t24))
+    if not np.array_equal(fl.estimate().view(np.int32), est.view(np.int32)):
+        fail("placement: reshard 4 x 2 -> 2 x 4 moved the estimate")
+    before = fl.state.replica_planes()
+    fl = fl.grow_groups(gm.E15_GROW)
+    after = fl.state.replica_planes()
+    if not all(np.array_equal(a[:, :g].view(np.int32), b.view(np.int32))
+               for a, b in zip(after, before)):
+        fail("placement: grow_groups moved existing lanes")
+    check_crc32s("elastic: grown", gm.plane_crc32s(after),
+                 data["place/e15/elastic/grown"])
+    canon = fl._lane_sketch().planes()
+    check_crc32s("elastic: canonical lanes", gm.plane_crc32s(
+        tuple(p.cpu().numpy()[None] for p in canon)),
+        data["place/e15/elastic/canonical"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_place_")
+    try:
+        _, save_ms = timed(torch, lambda: fl.checkpoint(tmp, step=1))
+        restore_ms = {}
+        for name, topo in (("single", TopologySpec()),
+                           ("1d_x8", TopologySpec(lanes=8, devices=card8)),
+                           ("4x2", t42)):
+            back, restore_ms[name] = timed(
+                torch, lambda: elastic.fleet_reshard_restore(
+                    tmp, fl.spec, topo))
+            if not same_bits(torch, back._lane_sketch().planes(), canon):
+                fail(f"placement: the checkpoint restored onto {name} "
+                     "differs from the canonical planes")
+        ckpt_bytes = dir_bytes(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("place", elastic="2x4 -> 4x2 -> sync -> 2x4 -> grow -> checkpoint",
+        reshard_2x4_to_4x2_ms=f"{grow_ms:.4f}", sync_r4_ms=f"{sync_ms:.4f}",
+        reshard_4x2_to_2x4_ms=f"{shrink_ms:.4f}",
+        checkpoint_save_ms=f"{save_ms:.4f}",
+        restore_ms=",".join(f"{k}:{v:.4f}" for k, v in restore_ms.items()),
+        checkpoint_bytes=ckpt_bytes, card=card,
+        result="every step equal to the JAX package's CRC32s; sync = numpy "
+        "fold; restores identical")
+
+    # A quarantine over the merged lanes: a sync point.
+    fl = dataclasses.replace(fl, spec=dataclasses.replace(
+        fl.spec, health="quarantine"))
+    bad = with_bad_lane(fl, 1, E15_BAD_LANE)
+    healed, rep = bad.check_health()
+    if rep.healthy or rep.corrupt_lanes != 1 or rep.quarantined != 1:
+        fail(f"placement: the scan found {rep}")
+    if not healed.check_health()[1].healthy:
+        fail("placement: a second scan after the heal is not healthy")
+    fresh_lane = (0.0, 1.0, 1.0)
+    for p, c, fill in zip(healed.state.replica_planes(), canon, fresh_lane):
+        c = c.cpu().numpy().copy()
+        c[E15_BAD_LANE] = fill
+        if not all(np.array_equal(p[r].view(np.int32), c.view(np.int32))
+                   for r in range(p.shape[0])):
+            fail("placement: after the quarantine a replica differs from "
+                 "the canonical lanes with the healed lane fresh")
+    say("place", quarantine="one replica's m word NaN",
+        corrupt_lanes=rep.corrupt_lanes, quarantined=rep.quarantined,
+        second_scan="healthy",
+        result="every replica = canonical lanes, the healed lane fresh")
+    return sum(want.values()) * (2 + E15_REPS)   # first, timed, traced
+
+
+def phase_placement(torch, gm, card, dense_period_ms):
+    """Phase 11; returns B1's launches in the phase."""
+    import numpy as np
+    from repro_torch.api import FleetSpec, QuantileFleet, TopologySpec
+    from repro_torch.core import program as program_mod
+    from repro_torch.core import streaming
+    from repro_torch.kernels import frugal_update as fk
+    from repro_torch.parallel import merge_replica_planes
+
+    phase_t0 = time.perf_counter()
+    data = np.load(GOLDEN)
+    fk.launch_count = 0
+    staged = dict(fk.producer_launch_count)
+
+    # (a) E15 at its full size.
+    t0 = time.perf_counter()
+    items = gm.e15_items()
+    make_s = time.perf_counter() - t0
+    crc = gm.chunk_crc32(items)
+    if crc != int(data["place/e15/items_crc32"]):
+        fail(f"placement: numpy {np.__version__} here draws another E15 "
+             f"block than the golden file's (CRC32 {crc})")
+    say("place", e15_items=list(items.shape), crc32=crc,
+        crc32_golden="match", making_items_s=f"{make_s:.2f}")
+    e15_launches = e15_run(torch, gm, items, card)
+    del items
+
+    # (b) The dense cell under a data axis (loop mode on one card).
+    dev = torch.device("cuda")
+    marks = []
+
+    def mark():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    def dense_chunks(on_chunk=None):
+        """Phase 5's chunks: the same generator, draws and order."""
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        scale = torch.exp(torch.empty(G_FULL, device=dev).uniform_(
+            3.0, 8.0, generator=gen))
+        torch.randperm(G_FULL, generator=gen, device=dev)  # phase 5's sample
+        for _ in range(N_CHUNKS):
+            if on_chunk is not None:
+                on_chunk()
+            x = torch.empty((CHUNK_T, G_FULL), device=dev).log_normal_(
+                0.0, 1.0, generator=gen)
+            yield x.mul_(scale)
+
+    spec = FleetSpec(num_groups=G_FULL, quantiles=QS, program="2u",
+                     chunk_t=CHUNK_T, topology=TopologySpec(data=2))
+    fleet = QuantileFleet.create(spec, seed=0)
+    if fleet.state.mode != "loop":
+        fail(f"placement: the dense cell runs in mode {fleet.state.mode}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = fk.launch_count
+    t0 = time.perf_counter()
+    fleet = fleet.ingest_stream(dense_chunks(mark))
+    mark()
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    dense_launches = fk.launch_count - before
+    peak = torch.cuda.max_memory_allocated()
+    periods = [a.elapsed_time(b) for a, b in zip(marks[1:-1], marks[2:])]
+    if dense_launches != 2 * N_CHUNKS:
+        fail(f"placement: the dense cell launched B1 {dense_launches} "
+             f"times, expected {2 * N_CHUNKS} (a chunk and an all-NaN "
+             "round-up chunk per call)")
+    prog = spec.program
+    singles = [QuantileFleet.create(spec.with_topology(TopologySpec()),
+                                    seed=0).state for _ in range(2)]
+    for c, x in enumerate(dense_chunks()):
+        singles[c % 2] = streaming.ingest_slabs(
+            singles[c % 2], [x], [c * CHUNK_T], 0, 0,
+            lanes_per_group=len(QS))
+    for r, (sk, single) in enumerate(zip(fleet.state.replica_sketches(),
+                                         singles)):
+        if not same_bits(torch, sk.planes(), single.planes()):
+            fail(f"placement: dense replica {r} differs from a single fleet "
+                 "over its chunks")
+    del singles
+    host = fleet.state.replica_planes()
+    folded = merge_replica_planes(prog, host)
+    est = fleet.estimate()
+    if not np.array_equal(est.reshape(-1).view(np.int32),
+                          folded[0].view(np.int32)):
+        fail("placement: the dense merged estimate differs from the numpy "
+             "fold")
+    synced, sync_ms = timed(torch, fleet.sync)
+    for p, want_p in zip(synced.state.replica_planes(), folded):
+        if not all(np.array_equal(p[r].view(np.int32), want_p.view(np.int32))
+                   for r in range(2)):
+            fail("placement: the card's dense sync differs from the numpy "
+                 "fold")
+    del synced, host, folded
+    say("place", dense_cell=f"{G_FULL}x{len(QS)}", topology="data=2 (loop)",
+        chunks=N_CHUNKS, b1_launches=dense_launches,
+        chunk_period_ms=",".join(f"{v:.4f}" for v in periods),
+        median_chunk_period_ms=f"{statistics.median(periods):.4f}",
+        phase5_median_chunk_period_ms=f"{dense_period_ms:.4f}",
+        ingest_s=f"{dense_s:.4f}", sync_r2_ms=f"{sync_ms:.4f}",
+        max_memory_allocated_bytes=peak, card=card,
+        result="each replica = a single fleet over its chunks; merged "
+        "estimate and sync = numpy fold")
+    del fleet
+
+    # (c) Six programs under 3 x 2, both modes.
+    six = gm.six_items()
+    if gm.chunk_crc32(six) != int(data["place/six/items_crc32"]):
+        fail("placement: numpy here draws other six-program items than "
+             "the golden file's")
+    six_launches = 0
+    per_replica = -(-(-(-gm.SIX_T // gm.SIX_CHUNK_T)) // gm.SIX_DATA)
+    for p in program_mod.test_instances():
+        for mode, devices in (("devices", (CARD,) * 6), ("loop", None)):
+            topo = TopologySpec(data=gm.SIX_DATA, lanes=gm.SIX_LANES,
+                                devices=devices)
+            before = fk.launch_count
+            fl = QuantileFleet.create(FleetSpec(
+                num_groups=gm.SIX_G, quantiles=gm.SIX_QS,
+                chunk_t=gm.SIX_CHUNK_T, program=p, topology=topo),
+                seed=gm.SIX_SEED).ingest(six)
+            n = fk.launch_count - before
+            want_n = per_replica * gm.SIX_DATA * (
+                gm.SIX_LANES if mode == "devices" else 1)
+            if fl.state.mode != mode or n != want_n:
+                fail(f"placement: {p.family} ran in mode {fl.state.mode} "
+                     f"with {n} B1 launches, expected {mode} and {want_n}")
+            six_launches += n
+            key = f"place/six/{p.family}"
+            fields = p.layout.plane_fields
+            reps = fl.state.replica_planes()
+            merged = fl.state.merged_planes()
+            folded = merge_replica_planes(p, reps)
+            synced = fl.sync().state.replica_planes()
+            for f, a, m, fo, sy in zip(fields, reps, merged, folded, synced):
+                want_m = data[f"{key}/merged/{f}"].view(np.int32)
+                if not np.array_equal(a.view(np.int32),
+                                      data[f"{key}/replicas/{f}"]
+                                      .view(np.int32)) or \
+                        not np.array_equal(m.view(np.int32), want_m) or \
+                        not np.array_equal(fo.view(np.int32), want_m) or \
+                        not all(np.array_equal(sy[r].view(np.int32), want_m)
+                                for r in range(gm.SIX_DATA)):
+                    fail(f"placement: {p.family} {mode} plane {f} differs "
+                         "from the golden file (replicas, merged, or the "
+                         "card's sync at R = 3)")
+    say("place", six_programs=",".join(
+        x.family for x in program_mod.test_instances()),
+        groups=gm.SIX_G, quantiles=len(gm.SIX_QS), ticks=gm.SIX_T,
+        topology=f"{gm.SIX_DATA}x{gm.SIX_LANES}", modes="devices,loop",
+        b1_launches=six_launches,
+        result="replica and merged planes = golden; card sync at R = 3 = "
+        "numpy fold")
+
+    launches = fk.launch_count
+    want = e15_launches + dense_launches + six_launches
+    say("place", b1_launches=launches, producers=producers_since(fk, staged),
+        phase_s=f"{time.perf_counter() - phase_t0:.1f}", card=card)
+    if launches < want:
+        fail(f"placement: {launches} B1 launches in the phase, expected at "
+             f"least {want}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -2374,13 +2814,15 @@ def main() -> None:
     phase_families(torch)
     phase_scatter(torch, gm)
     phase_golden(torch, gm)
-    launches = phase_main_path(torch, card)
+    launches, dense_period_ms = phase_main_path(torch, card)
     sparse_launches = phase_sparse_path(torch)
     entries = phase_timing(torch, loops, launches, card)
     entries += phase_scatter_timing(torch, gm, sparse_launches)
     phase_resilience(torch, gm, card)
     entries.append(phase_service(torch, gm, card))
     entries[0]["launches"] += phase_eval(torch, gm, card)
+    entries[0]["launches"] += phase_placement(torch, gm, card,
+                                              dense_period_ms)
     torch.cuda.synchronize()
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("JAX or the JAX package was imported")

@@ -1,4 +1,4 @@
-"""QuantileFleet — the fleet API of the port (single placement).
+"""QuantileFleet — the fleet API of the port.
 
     spec  = FleetSpec(num_groups=4096, quantiles=(0.5, 0.95, 0.99))
     fleet = QuantileFleet.create(spec, seed=0)          # on the card
@@ -12,6 +12,14 @@ Event-stream lanes (a per-lane clock, ``per_lane_clock=True``):
     fleet = fleet.tick_lanes(items)                     # [L], NaN = none
     fleet = fleet.tick_lanes_sparse(lanes, items)       # K events, O(K)
 
+Placement across devices (``FleetSpec(topology=TopologySpec(...))``):
+
+    spec  = FleetSpec(num_groups=2**20, topology=TopologySpec(data=2,
+                      lanes=4, devices=("cuda:0",) * 8))
+    fleet = QuantileFleet.create(spec).ingest(items)    # 2 replicas x 4
+    fleet = fleet.sync()                                # merge, write back
+    fleet = fleet.reshard(TopologySpec(data=4, lanes=2))  # elastic
+
 Health and checkpoints:
 
     fleet.health()                                      # scan only
@@ -21,33 +29,66 @@ Health and checkpoints:
 
 Functional like the JAX package's facade: every ingest returns a new
 fleet whose cursor has advanced (``tick_lanes_sparse(donate=True)`` is
-the one call that updates this fleet's tensors in place). The fleet's
-tensors live on one device, chosen at creation (``device=None`` is the
-card); later calls move items there. Checkpoints are the JAX package's
-format, so either package restores the other's; ``from_jax_state`` /
+the one call that updates this fleet's tensors in place). A single or
+loop-mode fleet lives on one device, chosen at creation (``device=None``
+is the card); a device-resolved topology places on its own devices. Later
+calls move items there. Every placement gives the JAX package's bits:
+single and 1-D placements the single trajectory, 2-D placements replicas
+that merge by the pinned rule (``parallel.mesh2d``). Checkpoints are the
+JAX package's format and hold the merged canonical lanes, so either
+package restores the other's onto any topology; ``from_jax_state`` /
 ``to_numpy_state`` carry a fleet's exact state across in memory.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Optional, Tuple
+from typing import Iterable, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.configs.platform import resolve_device
 from repro_torch.core import frugal, streaming
 from repro_torch.core import rng as crng
 from repro_torch.core.sketch import GroupedQuantileSketch, PackedSketchState
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.parallel.group_sharding import ShardedGroupFleet
+from repro_torch.parallel.mesh2d import Mesh2DFleet
+from repro_torch.parallel.topology import TopologySpec
 from repro_torch.resilience import chaos
 from repro_torch.resilience import health as health_mod
 from repro_torch.train import checkpoint as ckpt
 
 from .spec import FleetSpec, StreamCursor
 
-# The manifest's writer-topology stanza: the port places a fleet on one
-# device (the JAX package's TopologySpec().describe()).
-_SINGLE_TOPOLOGY = {"data": 1, "lanes": 1, "placement": "single"}
+_MESHED = (ShardedGroupFleet, Mesh2DFleet)
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Equal devices, with a CUDA device of no index read as the current
+    one."""
+    def index(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.cuda.current_device()
+        return d.index
+    return a.type == b.type and index(a) == index(b)
+
+
+def _home_device(spec: FleetSpec, device=None) -> torch.device:
+    """Where a fleet of ``spec`` builds its canonical sketch: the first
+    device of a device-resolved topology, else ``device`` (None: the
+    card). A ``device`` that names another device than the topology's
+    raises."""
+    topo = spec.topology
+    if not topo.on_devices:
+        return resolve_device(device)
+    if device is not None and not all(
+            _same_device(torch.device(device), d) for d in topo.devices):
+        raise ValueError(
+            f"device={device!r} contradicts the topology's devices "
+            f"{topo.devices}; drop device= or name the devices in the "
+            "TopologySpec")
+    return topo.devices[0]
 
 
 def _lane_tick(program, planes, ticks, q, items, seed, g_offset, scalars):
@@ -93,9 +134,11 @@ def _check_sparse_lanes(lanes, items, mask, num_lanes):
 @dataclasses.dataclass(frozen=True)
 class QuantileFleet:
     """A (G × Q) fleet of frugal quantile lanes behind one ingest/query
-    API. ``state`` is the lane sketch; ``cursor`` the stream position."""
+    API. ``state`` is the lane sketch (single placement), a
+    ShardedGroupFleet (1-D topology) or a Mesh2DFleet (2-D); ``cursor``
+    the stream position."""
 
-    state: GroupedQuantileSketch
+    state: Union[GroupedQuantileSketch, ShardedGroupFleet, Mesh2DFleet]
     cursor: StreamCursor
     spec: FleetSpec
 
@@ -105,18 +148,34 @@ class QuantileFleet:
                per_lane_clock: bool = False,
                device=None) -> "QuantileFleet":
         """Fresh fleet at stream position 0 on ``device`` (None: the card;
-        raises where there is none). ``seed`` or uint32 key words ``key``
-        seed the counter RNG. ``per_lane_clock`` starts the cursor with a
-        per-lane [L] tick tensor, the event-stream mode (``tick_lanes``,
-        ``tick_lanes_sparse``); block ingest uses the scalar clock."""
+        raises where there is none) or on the devices of a device-resolved
+        topology, which ``device`` may restate but not contradict.
+        ``seed`` or uint32 key words ``key`` seed the counter RNG.
+        ``per_lane_clock`` starts the cursor with a per-lane [L] tick
+        tensor, the event-stream mode (``tick_lanes``,
+        ``tick_lanes_sparse``, single placement); block ingest uses the
+        scalar clock."""
         sk = GroupedQuantileSketch.create_lanes(
             spec.num_groups, spec.quantiles, algo=spec.algo, init=init,
-            drift=spec.drift, device=device)
+            drift=spec.drift, device=_home_device(spec, device))
         if cursor is None:
             t0 = torch.zeros(spec.num_lanes, dtype=torch.int32,
                              device=sk.device) if per_lane_clock else 0
             cursor = StreamCursor.create(seed=seed, t_offset=t0, key=key)
-        return cls(state=sk, cursor=cursor, spec=spec)
+        return cls(state=cls._place(spec, sk), cursor=cursor, spec=spec)
+
+    @staticmethod
+    def _place(spec: FleetSpec, sk: GroupedQuantileSketch):
+        """Lay a canonical [L] sketch out on the spec's topology (a loop-mode
+        fleet on the sketch's device). Every replica of a 2-D placement
+        starts at the canonical state: placing is a sync point."""
+        if spec.backend == "sharded":
+            return ShardedGroupFleet.from_sketch(
+                sk, spec.mesh, lanes_per_group=spec.num_quantiles)
+        if spec.backend == "mesh2d":
+            return Mesh2DFleet.from_sketch(
+                sk, spec.topology, lanes_per_group=spec.num_quantiles)
+        return sk
 
     # ------------------------------------------------------------ properties
     @property
@@ -143,13 +202,23 @@ class QuantileFleet:
         """Persistent words per lane: 1 (1U) or 2 (packed 2U) per plane."""
         return self.spec.memory_words()
 
+    def _lane_sketch(self) -> GroupedQuantileSketch:
+        """The canonical [L]-lane sketch: the state itself, a 1-D fleet's
+        gathered lanes, or a 2-D fleet's replicas through the pinned merge
+        (reading is a merge, not a mutation)."""
+        if isinstance(self.state, _MESHED):
+            return self.state.unshard()
+        return self.state
+
     # ---------------------------------------------------------------- health
     def health(self) -> health_mod.HealthReport:
         """Scan-only lane health report: every lane's planes against the
         spec program's declared StateLayout invariants (finite heads, exact
         ±1 signs, pack-round-trippable steps). Never mutates or raises;
-        ``check_health`` applies the policy."""
-        return health_mod.report_for(self.spec.program, self.state.planes(),
+        ``check_health`` applies the policy. A meshed fleet is scanned
+        over its merged canonical lanes."""
+        return health_mod.report_for(self.spec.program,
+                                     self._lane_sketch().planes(),
                                      self.spec.health)
 
     def check_health(self) -> Tuple["QuantileFleet",
@@ -162,18 +231,23 @@ class QuantileFleet:
                        state (future ticks bit-exact with a lane created
                        at the current cursor), healthy lanes untouched;
         "ignore"     — report only.
+
+        On a 2-D placement the scan and the heal run over the merged
+        canonical lanes, and re-placing the healed sketch writes it to
+        every replica: a quarantine is a sync point.
         """
-        prog, planes = self.spec.program, self.state.planes()
+        sk = self._lane_sketch()
+        prog, planes = self.spec.program, sk.planes()
         mask = health_mod.validate_planes(prog, planes)
         rep = health_mod.report_of(mask, self.spec.health)
         if rep.healthy or self.spec.health == "ignore":
             return self, rep
         if self.spec.health == "raise":
             raise health_mod.LaneCorruptionError(str(rep))
-        healed = self.state.with_planes(
-            health_mod.heal_planes(prog, planes, mask))
+        healed = sk.with_planes(health_mod.heal_planes(prog, planes, mask))
         rep = dataclasses.replace(rep, quarantined=rep.corrupt_lanes)
-        return dataclasses.replace(self, state=healed), rep
+        return dataclasses.replace(
+            self, state=self._place(self.spec, healed)), rep
 
     # ---------------------------------------------------------------- ingest
     def _require_scalar_clock(self, what: str):
@@ -187,16 +261,24 @@ class QuantileFleet:
         advanced t ticks. Bit-identical for any split of a stream into
         successive calls, and on either ``spec.backend``: "fused" runs
         ``chunk_t``-row dense-kernel calls, "jnp" the plain loop
-        (``GroupedQuantileSketch.process_seeded``) over the same rows."""
+        (``GroupedQuantileSketch.process_seeded``) over the same rows.
+        A meshed fleet runs the chunked engine on every shard (and routes
+        chunks to replicas by absolute tick)."""
         self._require_scalar_clock("ingest")
         cur = self.cursor
-        sk = streaming.ingest_array(
-            self.state, items, cur.seed, chunk_t=self.spec.chunk_t,
-            t_offset=cur.t_offset, g_offset=cur.g_offset,
-            lanes_per_group=self.num_quantiles,
-            plain=self.spec.backend == "jnp")
+        if isinstance(self.state, _MESHED):
+            items = streaming._as_2d(items, self.num_groups)
+            state = self.state.ingest_array(
+                items, seed=cur.seed, chunk_t=self.spec.chunk_t,
+                t_offset=cur.t_offset, g_offset=cur.g_offset)
+        else:
+            state = streaming.ingest_array(
+                self.state, items, cur.seed, chunk_t=self.spec.chunk_t,
+                t_offset=cur.t_offset, g_offset=cur.g_offset,
+                lanes_per_group=self.num_quantiles,
+                plain=self.spec.backend == "jnp")
         return dataclasses.replace(
-            self, state=sk, cursor=cur.advance(np.shape(items)[0]))
+            self, state=state, cursor=cur.advance(np.shape(items)[0]))
 
     def ingest_stream(self, chunks: Iterable, chunk_t: Optional[int] = None,
                       skip_items: int = 0) -> "QuantileFleet":
@@ -225,11 +307,16 @@ class QuantileFleet:
                 yield c
 
         try:
-            sk = streaming.ingest_stream(
-                self.state, counting(), cur.seed, chunk_t=chunk_t,
-                t_offset=cur.t_offset, g_offset=cur.g_offset,
-                lanes_per_group=self.num_quantiles,
-                plain=self.spec.backend == "jnp")
+            if isinstance(self.state, _MESHED):
+                sk = self.state.ingest_stream(
+                    counting(), seed=cur.seed, chunk_t=chunk_t,
+                    t_offset=cur.t_offset, g_offset=cur.g_offset)
+            else:
+                sk = streaming.ingest_stream(
+                    self.state, counting(), cur.seed, chunk_t=chunk_t,
+                    t_offset=cur.t_offset, g_offset=cur.g_offset,
+                    lanes_per_group=self.num_quantiles,
+                    plain=self.spec.backend == "jnp")
         except chaos.StreamInterrupted as e:
             applied = e.items_applied
             partial = dataclasses.replace(self, state=e.state,
@@ -246,6 +333,12 @@ class QuantileFleet:
     def _on_device(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device).to(dtype)
 
+    def _refuse_meshed(self, what: str):
+        if isinstance(self.state, _MESHED):
+            raise NotImplementedError(
+                f"{what} on a meshed fleet — event-stream lanes run the "
+                "single placement (TopologySpec())")
+
     def tick_lanes(self, items, mask=None) -> "QuantileFleet":
         """One tick over all L lanes from lane-level items [L] (NaN = no
         event on that lane: a bit-exact no-op).
@@ -255,8 +348,10 @@ class QuantileFleet:
         event always consumes uniform (seed, k, lane). Items on masked-out
         lanes are forced to NaN first: a lane's state never moves without
         its clock. With the scalar clock every lane shares the tick and
-        the clock advances by 1; a mask raises there.
+        the clock advances by 1; a mask raises there. Single placement
+        only, as in the JAX package.
         """
+        self._refuse_meshed("tick_lanes")
         sk = self.state
         items = self._on_device(items, torch.float32)
         if tuple(items.shape) != (self.num_lanes,):
@@ -310,7 +405,9 @@ class QuantileFleet:
         ``check_duplicates=True`` adds a host-side check of the stricter
         round contract (distinct masked-in lanes, pads on lanes of their
         own; a debugging aid that synchronises with the card).
+        Single placement only, as in the JAX package.
         """
+        self._refuse_meshed("tick_lanes_sparse")
         if not self.cursor.per_lane:
             raise ValueError("tick_lanes_sparse needs a per-lane cursor "
                              "(create with per_lane_clock=True)")
@@ -338,27 +435,65 @@ class QuantileFleet:
         """Append groups (capacity growth, e.g. serving routes). Lane ids
         are group-major and independent of capacity, so growth appends
         lanes (and zero clocks on a per-lane cursor) without touching any
-        existing lane's state or uniform stream."""
+        existing lane's state or uniform stream. A 2-D fleet appends to
+        every replica (not a sync point); a 1-D fleet gathers its real
+        lanes, appends and re-shards."""
         if num_groups < self.num_groups:
             raise ValueError(f"cannot shrink {self.num_groups} -> "
                              f"{num_groups}")
         if num_groups == self.num_groups:
             return self
         spec = dataclasses.replace(self.spec, num_groups=num_groups)
-        sk = self.state
         fresh = GroupedQuantileSketch.create_lanes(
             num_groups - self.num_groups, spec.quantiles, algo=spec.algo,
             init=init, drift=spec.drift, device=self.device)
-        grown = dataclasses.replace(sk, quantile=torch.cat(
-            [sk.quantile, fresh.quantile]), **{
-                f: torch.cat([getattr(sk, f), getattr(fresh, f)])
-                for f in spec.program.layout.plane_fields})
+        if isinstance(self.state, Mesh2DFleet):
+            grown = self.state.grow(fresh)
+        else:
+            sk = self._lane_sketch()
+            grown = self._place(spec, dataclasses.replace(
+                sk, quantile=torch.cat([sk.quantile, fresh.quantile]), **{
+                    f: torch.cat([getattr(sk, f), getattr(fresh, f)])
+                    for f in spec.program.layout.plane_fields}))
         cur = self.cursor
         if cur.per_lane:
             pad = torch.zeros(spec.num_lanes - self.num_lanes,
                               dtype=torch.int32, device=self.device)
             cur = cur._replace(t_offset=torch.cat([cur.t_offset, pad]))
         return QuantileFleet(state=grown, cursor=cur, spec=spec)
+
+    # --------------------------------------------------------------- elastic
+    def sync(self) -> "QuantileFleet":
+        """Fold every data replica through the pinned merge and write the
+        canonical state back (the DESIGN.md §15 sync point), on the
+        fleet's devices. Idempotent, and the identity on single and 1-D
+        placements, which hold one trajectory."""
+        if isinstance(self.state, Mesh2DFleet):
+            return dataclasses.replace(self, state=self.state.sync())
+        return self
+
+    def reshard(self, topology: TopologySpec) -> "QuantileFleet":
+        """Re-place this live fleet on ``topology`` without perturbing its
+        lanes:
+
+        * the same data-replica count: every replica's lanes carry over
+          bit for bit (a relayout, no merge);
+        * another replica count (single and 1-D included): the fleet
+          passes through the pinned merge — a sync point — so
+          ``estimate()`` is unchanged and the canonical trajectory goes on.
+
+        A single or loop-mode result stays on this fleet's device. The
+        cursor is untouched."""
+        spec = self.spec.with_topology(topology)
+        topo = spec.topology
+        if (isinstance(self.state, Mesh2DFleet)
+                and topo.placement == "mesh2d"
+                and topo.data == self.state.data_replicas):
+            state = Mesh2DFleet._build(self.state.replica_sketches(), topo,
+                                       spec.num_quantiles)
+        else:
+            state = self._place(spec, self._lane_sketch())
+        return QuantileFleet(state=state, cursor=self.cursor, spec=spec)
 
     # ----------------------------------------------------------------- reads
     def query_view(self) -> Tuple[Tuple[np.ndarray, ...], np.ndarray, int,
@@ -367,10 +502,17 @@ class QuantileFleet:
         layout's query planes, the cursor tick (scalar or per lane), the
         seed and absolute lane ids — the one gathering read behind
         ``estimate()``. Nothing returned aliases a tensor that a later
-        ``tick_lanes_sparse(donate=True)`` round updates in place."""
+        ``tick_lanes_sparse(donate=True)`` round updates in place. Only
+        the query planes move: a 2-D fleet folds them on the host through
+        the pinned merge."""
         fields = self.spec.program.layout.query_fields
-        m_planes = tuple(getattr(self.state, f).cpu().numpy().copy()
-                         for f in fields)
+        if isinstance(self.state, Mesh2DFleet):
+            m_planes = self.state.merged_planes(fields)
+        elif isinstance(self.state, ShardedGroupFleet):
+            m_planes = self.state.host_planes(fields)
+        else:
+            m_planes = tuple(getattr(self.state, f).cpu().numpy().copy()
+                             for f in fields)
         cur = self.cursor
         t_next = (cur.t_offset.cpu().numpy().copy() if cur.per_lane
                   else np.array(cur.t_offset, dtype=np.int32))
@@ -391,15 +533,15 @@ class QuantileFleet:
 
     # -------------------------------------------------------- serialization
     def checkpoint_state(self) -> dict:
-        """Checkpoint tree: the lane sketch (stored packed, 1-2 words per
-        lane) and the cursor as int32 leaves (0-d, or [L] for a per-lane
-        clock), the JAX package's layout leaf for leaf. The tensors are
-        the fleet's own (``tick_lanes_sparse(donate=True)`` updates them in
-        place)."""
+        """Checkpoint tree: the canonical lane sketch (stored packed, 1-2
+        words per lane; a meshed fleet's merged lanes) and the cursor as
+        int32 leaves (0-d, or [L] for a per-lane clock), the JAX package's
+        layout leaf for leaf. A single fleet's tensors are its own
+        (``tick_lanes_sparse(donate=True)`` updates them in place)."""
         cur = self.cursor
         t_off = cur.t_offset if cur.per_lane \
             else np.asarray(cur.t_offset, np.int32)
-        return {"sketch": self.state,
+        return {"sketch": self._lane_sketch(),
                 "cursor": StreamCursor(seed=np.asarray(cur.seed, np.int32),
                                        t_offset=t_off,
                                        g_offset=np.asarray(cur.g_offset,
@@ -438,9 +580,10 @@ class QuantileFleet:
     def from_checkpoint_state(cls, state: dict,
                               spec: FleetSpec) -> "QuantileFleet":
         """A fleet from a checkpoint tree (``{"sketch": sketch, "cursor":
-        (seed, t_offset, g_offset)}``), on the sketch's device. The sketch
-        must match ``spec``'s lane count and program layout; the spec, not
-        the file, owns drift parameters going forward."""
+        (seed, t_offset, g_offset)}``), placed on ``spec``'s topology (a
+        single or loop-mode fleet on the sketch's device). The sketch must
+        match ``spec``'s lane count and program layout; the spec, not the
+        file, owns drift parameters going forward."""
         sk = state["sketch"]
         if sk.num_groups != spec.num_lanes:
             raise ValueError(
@@ -467,26 +610,31 @@ class QuantileFleet:
                                  f"clocks, spec expects {spec.num_lanes}")
         else:
             t_off = int(t_off)
-        return cls(state=sk, cursor=StreamCursor.create(
+        return cls(state=cls._place(spec, sk), cursor=StreamCursor.create(
             seed=int(seed), t_offset=t_off, g_offset=int(g_off)), spec=spec)
 
     def checkpoint(self, ckpt_dir: str, step: int, keep: int = 3) -> str:
         """Write a committed, per-leaf-checksummed format-4 checkpoint
         (``train.checkpoint``: restore verifies the CRCs, quarantines a
-        corrupt step and falls back to the newest intact one)."""
+        corrupt step and falls back to the newest intact one). The payload
+        is the merged canonical lanes (a checkpoint is a sync point), so
+        ``restore`` re-places it on any topology; the manifest records the
+        writer's topology."""
         return ckpt.save_checkpoint(ckpt_dir, step, self.checkpoint_state(),
-                                    keep=keep, topology=_SINGLE_TOPOLOGY)
+                                    keep=keep,
+                                    topology=self.spec.topology.describe())
 
     @classmethod
     def restore(cls, ckpt_dir: str, spec: FleetSpec,
                 step: Optional[int] = None, per_lane_clock: bool = False,
                 device=None) -> "QuantileFleet":
         """Load the newest committed checkpoint (or ``step``) into a fleet
-        on ``device`` (None: the card; raises where there is none). A
-        checkpoint the JAX package wrote restores the same way."""
+        on ``spec``'s topology: on ``device`` (None: the card; raises where
+        there is none) or on the topology's own devices. A checkpoint the
+        JAX package wrote, under any topology, restores the same way."""
         like = cls.template_for(spec, per_lane_clock=per_lane_clock)
         state, _ = ckpt.restore_checkpoint(ckpt_dir, like=like, step=step,
-                                           device=device)
+                                           device=_home_device(spec, device))
         return cls.from_checkpoint_state(state, spec)
 
     # ------------------------------------------------------- carry across
@@ -495,7 +643,7 @@ class QuantileFleet:
         ``GroupedQuantileSketch.packed()`` fields and its ``StreamCursor``
         values (a per-lane ``t_offset`` as an [L] int32 numpy array), ready
         to rebuild a JAX fleet at exactly this state."""
-        p = self.state.packed()
+        p = self._lane_sketch().packed()
         cur = self.cursor
         if cur.per_lane:
             cur = cur._replace(t_offset=cur.t_offset.cpu().numpy().copy())
@@ -512,8 +660,10 @@ def from_jax_state(spec: FleetSpec, packed, cursor,
     (or tensors); ``cursor`` is the JAX ``StreamCursor`` as (seed,
     t_offset, g_offset): ints, with ``t_offset`` an [L] int32 array for a
     per-lane (event-stream) fleet. The payload must match ``spec``'s lane
-    count and program layout (``QuantileFleet.from_checkpoint_state``).
+    count and program layout (``QuantileFleet.from_checkpoint_state``),
+    and lands on ``spec``'s topology.
     """
-    sk = GroupedQuantileSketch.from_packed(packed, device=device)
+    sk = GroupedQuantileSketch.from_packed(
+        packed, device=_home_device(spec, device))
     return QuantileFleet.from_checkpoint_state(
         {"sketch": sk, "cursor": cursor}, spec)

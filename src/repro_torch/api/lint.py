@@ -12,16 +12,18 @@ instance must declare a packing spec that enumerates its planes, a query
 that answers, scalar slots that match its tick, and an invariant domain
 for every plane field, from which lane health is derived.
 
-The JAX package's third check, ``check_topology_spellings``, guards the
-placement surface, which the port does not have yet (ROADMAP.md queue A,
-item 2).
+``check_topology_spellings`` scans the repository's sources for the
+deprecated placement spelling (backend="sharded" or mesh= inside a
+FleetSpec call); ``topology=TopologySpec(...)`` is the one spelling.
 
     python -m repro_torch.api.lint
 """
 from __future__ import annotations
 
 import importlib
+import os
 import pkgutil
+import re
 from typing import Dict, List, Tuple
 
 
@@ -68,6 +70,86 @@ def check_programs() -> Tuple[str, ...]:
     return program_mod.validate_registry()
 
 
+# The deprecated placement spelling inside a FleetSpec(...) call span:
+# backend="sharded" or any mesh= keyword ((?!=) keeps `mesh ==` out).
+# Engine spellings backend="jnp"/"fused" are not placements.
+_DEPRECATED_SPELLING = re.compile(
+    r"backend\s*=\s*['\"]sharded['\"]|\bmesh\s*=(?!=)")
+# Files that legitimately spell the deprecated form: the shims, the lints
+# and the JAX package's test of its warning.
+_SPELLING_ALLOWLIST = frozenset({
+    "src/repro/api/spec.py",
+    "src/repro/api/lint.py",
+    "tests/test_deprecations.py",
+    "src/repro_torch/api/spec.py",
+    "src/repro_torch/api/lint.py",
+})
+_TRIPLE_STRING = re.compile(r"('''|\"\"\")(?:.|\n)*?\1")
+_LINE_COMMENT = re.compile(r"#[^\n]*")
+
+
+def _strip_prose(text: str) -> str:
+    """Blank out triple-quoted strings and # comments (newlines kept, so
+    line numbers stay true): prose may describe the deprecated spelling,
+    code may not use it."""
+    def blank(m):
+        return re.sub(r"[^\n]", " ", m.group(0))
+
+    return _LINE_COMMENT.sub(blank, _TRIPLE_STRING.sub(blank, text))
+
+
+def _fleet_spec_spans(text: str):
+    """Yield (offset, argument text) of each FleetSpec(...) call in
+    ``text`` (prose stripped), the span found by balancing parentheses."""
+    for m in re.finditer(r"\bFleetSpec\s*\(", text):
+        depth, i = 1, m.end()
+        while i < len(text) and depth:
+            if text[i] == "(":
+                depth += 1
+            elif text[i] == ")":
+                depth -= 1
+            i += 1
+        yield m.start(), text[m.end():i - 1]
+
+
+def check_topology_spellings(root: str = None) -> int:
+    """Assert that no FleetSpec(...) call in the repository's sources
+    (src/, tests/, benchmarks/, examples/) uses the deprecated
+    backend="sharded" / mesh= placement spelling; the shim exists for
+    outside callers only. Returns the number of files scanned; raises
+    AssertionError listing every offending file:line."""
+    if root is None:
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__)))))
+    offenders: List[str] = []
+    scanned = 0
+    for top in ("src", "tests", "benchmarks", "examples"):
+        base = os.path.join(root, top)
+        if not os.path.isdir(base):
+            continue
+        for dirpath, _, files in os.walk(base):
+            for fn in sorted(files):
+                if not fn.endswith(".py"):
+                    continue
+                path = os.path.join(dirpath, fn)
+                rel = os.path.relpath(path, root).replace(os.sep, "/")
+                if rel in _SPELLING_ALLOWLIST:
+                    continue
+                with open(path, encoding="utf-8") as f:
+                    text = _strip_prose(f.read())
+                scanned += 1
+                for pos, span in _fleet_spec_spans(text):
+                    if _DEPRECATED_SPELLING.search(span):
+                        line = text.count("\n", 0, pos) + 1
+                        offenders.append(f"  {rel}:{line}")
+    if offenders:
+        raise AssertionError(
+            "deprecated placement spelling in the repository (use "
+            "topology=TopologySpec(...) — DESIGN.md §9):\n"
+            + "\n".join(offenders))
+    return scanned
+
+
 def main() -> None:
     exported = check_public_api()
     total = sum(len(v) for v in exported.values())
@@ -76,6 +158,9 @@ def main() -> None:
     families = check_programs()
     print(f"lane programs OK: {len(families)} registered families validate "
           f"({', '.join(families)})")
+    scanned = check_topology_spellings()
+    print(f"topology spellings OK: {scanned} source files free of the "
+          "deprecated backend='sharded'/mesh= placement spelling")
 
 
 if __name__ == "__main__":

@@ -1,9 +1,9 @@
 """FleetSpec and StreamCursor — the configuration and stream position of a
-``QuantileFleet`` (port of the JAX package's ``api/spec.py``, single
-placement only)."""
+``QuantileFleet`` (port of the JAX package's ``api/spec.py``)."""
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -12,11 +12,13 @@ import torch
 from repro_torch.core import rng as crng
 from repro_torch.core.drift import DriftConfig
 from repro_torch.core.program import LaneProgram, make_program, program_for
+from repro_torch.parallel.topology import TopologySpec
 from repro_torch.resilience.health import HEALTH_POLICIES
 
-# The JAX package's spellable backends. "jnp" and "fused" are engines of
-# the single placement; "sharded" names a placement across devices, which
-# the port does not have yet.
+# User-spellable backends. "jnp" and "fused" are engines of the single
+# placement; "sharded" survives only as the deprecated placement spelling,
+# mapped onto topology= with a DeprecationWarning; "mesh2d" is derived only
+# (spell it as topology=TopologySpec(data=...)).
 BACKENDS = ("jnp", "fused", "sharded")
 
 
@@ -89,19 +91,36 @@ class FleetSpec:
     quantiles  — targets per group; the fleet lays out a (G × Q) lane
                  plane, lane = g·Q + qi.
     algo       — "1u" (paper Alg. 2) or "2u" (paper Alg. 3).
-    backend    — the ingest engine: "fused" (chunked dense-kernel calls,
-                 ``core.streaming``: the CUDA kernel on the card) or "jnp"
-                 (the plain PyTorch loop, ``core.frugal
-                 .program_process_seeded``, on the fleet's device). Both
-                 give the same bits.
-    chunk_t    — tick-block size of one kernel call in chunked ingest.
+    backend    — the ingest engine of the single placement: "fused"
+                 (chunked dense-kernel calls, ``core.streaming``: the CUDA
+                 kernel on the card) or "jnp" (the plain PyTorch loop,
+                 ``core.frugal.program_process_seeded``, on the fleet's
+                 device). Both give the same bits. Meshed placements run
+                 the chunked engine; after normalization ``backend`` reads
+                 "sharded" (1-D) or "mesh2d" (2-D). Spelling
+                 backend="sharded" (with an optional ``mesh=``) is
+                 deprecated: it builds a spec equal to the topology=
+                 spelling, under a DeprecationWarning.
+    chunk_t    — tick-block size of one kernel call in chunked ingest; on
+                 a 2-D topology also the replica round-robin unit (chunk c
+                 goes to replica c mod R).
     drift      — legacy parameter carrier (a DriftConfig or None).
     program    — the update rule: a LaneProgram or a registered family
                  name; owns algo and drift when given.
-    topology   — placement; only the single device is ported (None).
+    topology   — THE placement surface, a ``parallel.TopologySpec``:
+                   TopologySpec()                — one device (default)
+                   TopologySpec(lanes=8)         — the lane axis over 8
+                                                   devices
+                   TopologySpec(data=2, lanes=4) — 2 stream replicas × 4
+                                                   lane shards
+                 normalized device-resolved, so equal placements compare
+                 equal however they were spelled.
     health     — lane-corruption policy of QuantileFleet.check_health()
                  (resilience.health.HEALTH_POLICIES): "raise", "quarantine"
                  (re-initialize corrupt lanes) or "ignore" (report only).
+    mesh       — deprecated input (see backend): a device sequence. After
+                 normalization it holds the 1-D lane devices of a sharded
+                 placement (a tuple), else None.
     """
 
     num_groups: int
@@ -111,8 +130,9 @@ class FleetSpec:
     chunk_t: int = 4096
     drift: Optional[DriftConfig] = None
     program: Optional[Union[str, LaneProgram]] = None
-    topology: Optional[object] = None
+    topology: Optional[TopologySpec] = None
     health: str = "raise"
+    mesh: Optional[Tuple] = None
 
     def __post_init__(self):
         qs = tuple(float(q) for q in np.atleast_1d(np.asarray(self.quantiles,
@@ -129,23 +149,11 @@ class FleetSpec:
             raise ValueError(f"algo must be '1u' or '2u', got {self.algo!r}")
         if self.chunk_t <= 0:
             raise ValueError(f"chunk_t must be positive, got {self.chunk_t}")
-        if self.backend == "sharded":
-            raise ValueError(
-                "backend='sharded' places a fleet across devices, which "
-                "waits for the parallel/ port (ROADMAP.md queue A, item 2); "
-                "use 'fused' or 'jnp'")
-        if self.backend not in ("jnp", "fused"):
-            raise ValueError(f"backend must be one of {BACKENDS}, got "
-                             f"{self.backend!r}")
+        self._normalize_topology()
         if self.health not in HEALTH_POLICIES:
             raise ValueError(
                 f"health must be one of {HEALTH_POLICIES}, got "
                 f"{self.health!r}")
-        if self.topology is not None:
-            raise NotImplementedError(
-                "only the single-device placement is ported; lane-sharded "
-                "and 2-D placements wait for the parallel/ port "
-                "(ROADMAP.md queue A, item 2)")
         if self.drift is not None:
             self.drift.validate_for_algo(self.algo)
         prog = self.program
@@ -167,6 +175,84 @@ class FleetSpec:
         object.__setattr__(self, "algo", prog.algo)
         object.__setattr__(self, "drift", prog.drift)
 
+    # -------------------------------------------------------------- topology
+    def _normalize_topology(self):
+        """Fold the placement spellings onto ONE normalized surface.
+
+        Afterwards ``topology`` is a device-resolved TopologySpec,
+        ``backend`` the derived engine ("jnp"/"fused" single-device,
+        "sharded" 1-D, "mesh2d" 2-D) and ``mesh`` the 1-D lane devices of a
+        sharded placement (or None). The deprecated backend="sharded" /
+        mesh= spelling builds a spec EQUAL to the topology= spelling, under
+        a DeprecationWarning. Normalized values round-trip through
+        dataclasses.replace without warning again."""
+        topo = self.topology
+        if topo is None:
+            if self.backend == "sharded" or self.mesh is not None:
+                if self.backend != "sharded":
+                    raise ValueError("mesh= only applies to "
+                                     "backend='sharded'")
+                warnings.warn(
+                    "backend='sharded' (with an optional mesh) is the "
+                    "deprecated placement spelling — give the spec "
+                    "topology=TopologySpec(lanes=...) instead "
+                    "(parallel.TopologySpec; migration table in "
+                    "DESIGN.md §9)", DeprecationWarning, stacklevel=4)
+                topo = TopologySpec.from_mesh(self.mesh)
+            else:
+                if self.backend not in ("jnp", "fused"):
+                    raise ValueError(f"backend must be one of {BACKENDS}, "
+                                     f"got {self.backend!r}")
+                topo = TopologySpec()
+        else:
+            if not isinstance(topo, TopologySpec):
+                raise ValueError("topology must be a parallel.TopologySpec, "
+                                 f"got {type(topo).__name__}")
+            placement = topo.placement
+            if self.backend in ("jnp", "fused"):
+                if self.mesh is not None:
+                    raise ValueError(
+                        "mesh= is the deprecated placement spelling — fold "
+                        "the devices into topology= (DESIGN.md §9)")
+                if self.backend == "jnp" and placement != "single":
+                    raise ValueError(
+                        "backend='jnp' is the single-device scan engine; "
+                        "meshed topologies run the chunked engine — drop "
+                        "backend=")
+            elif not ((self.backend == "sharded" and placement == "sharded")
+                      or (self.backend == "mesh2d"
+                          and placement == "mesh2d")):
+                raise ValueError(
+                    f"backend={self.backend!r} contradicts topology "
+                    f"placement {placement!r} — topology= is the one "
+                    "placement surface (drop backend=/mesh=)")
+        topo = topo.resolve()
+        placement = topo.placement
+        if placement == "single":
+            backend = self.backend if self.backend in ("jnp", "fused") \
+                else "fused"
+            mesh = None
+        elif placement == "sharded":
+            backend, mesh = "sharded", topo.devices
+        else:
+            backend, mesh = "mesh2d", None
+        object.__setattr__(self, "topology", topo)
+        object.__setattr__(self, "backend", backend)
+        object.__setattr__(self, "mesh", mesh)
+
+    def with_topology(self, topology: TopologySpec) -> "FleetSpec":
+        """This spec re-placed on ``topology`` (the reshard and restore
+        spelling). The plain engine exists on one device only, so a fleet
+        leaving the single placement runs the chunked engine."""
+        backend = self.backend if (self.backend in ("jnp", "fused") and
+                                   topology.placement == "single") \
+            else "fused"
+        return FleetSpec(num_groups=self.num_groups,
+                         quantiles=self.quantiles, backend=backend,
+                         chunk_t=self.chunk_t, program=self.program,
+                         health=self.health, topology=topology)
+
+    # ------------------------------------------------------------ lane plane
     @property
     def num_quantiles(self) -> int:
         return len(self.quantiles)

@@ -69,6 +69,21 @@ streams at q = 0.5 (``make_baseline``, as ``benchmarks/common.py`` builds
 them), and a ``FrugalEstimator`` (q50 and q90, seed 0) fed E3 size stream
 0 in pieces (``estimator_feed``).
 
+Placement across devices (keys ``place/*``), from the JAX package's
+sequential replica loop on one CPU device. E15 at its full size
+(``benchmarks/bench_mesh2d.py``: G = 2^20, q50, ``2u``, chunk_t 64, T = 512
+items from ``e15_items``, fleet seed 0), as CRC32s of float32 bytes, not
+arrays: the items; the single fleet's estimates; a 2 × 4 fleet after the
+whole block (each replica's planes, ``plane_crc32s``, and the merged
+estimates); and the elastic sequence: rows 0-255 under 2 × 4, a reshard to
+4 × 2, rows 256-511, ``sync()``, a reshard back to 2 × 4 and
+``grow_groups(2^20 + 2^16)`` (replica planes after each step that changes
+them, the merged estimates after the sync, the canonical planes at the
+end). Six programs (``test_instances``) at G = 1000, q50/q90, T = 700
+(``six_items``, its CRC32 stored), chunk_t 64, fleet seed 11, under
+TopologySpec(data=3, lanes=2): each one's replica planes and merged
+planes in full.
+
     PYTHONPATH=src python tests/make_torch_port_golden.py
 """
 import os
@@ -109,6 +124,10 @@ EVAL_DATASETS = ("e3_size", "e3_duration", "e5_user", "e5_daily")
 EVAL_QS, EVAL_ALGOS, EVAL_CHUNK_T, EVAL_KEY = (0.5, 0.9), ("1u", "2u"), 4096, 0
 EVAL_BASELINES = ("gk20", "qdigest20", "selection")
 EVAL_BASELINE_STREAMS, EVAL_BASELINE_Q = 40, 0.5
+E15_G, E15_T, E15_CHUNK_T, E15_SEED = 2 ** 20, 512, 64, 0
+E15_GROW = 2 ** 20 + 2 ** 16
+SIX_G, SIX_QS, SIX_T, SIX_CHUNK_T, SIX_SEED = 1000, (0.5, 0.9), 700, 64, 11
+SIX_DATA, SIX_LANES = 3, 2
 
 
 def random_planes(rng, prog, lanes):
@@ -576,6 +595,85 @@ def golden_eval():
     return out
 
 
+def e15_items():
+    """E15's [512, 2^20] item block, as ``benchmarks/bench_mesh2d.py``
+    draws it at seed 0."""
+    rng = np.random.default_rng(E15_SEED)
+    return rng.integers(0, 1000, (E15_T, E15_G),
+                        dtype=np.int32).astype(np.float32)
+
+
+def six_items():
+    rng = np.random.default_rng(SIX_SEED)
+    return rng.normal(50.0, 15.0, (SIX_T, SIX_G)).astype(np.float32)
+
+
+def plane_crc32s(planes):
+    """[R, planes] CRC32s of a fleet's replica planes (each [R, L])."""
+    return np.asarray([[chunk_crc32(p[r]) for p in planes]
+                       for r in range(planes[0].shape[0])], np.int64)
+
+
+def golden_placement():
+    """{key: array} of the JAX package's placements (``place/*``)."""
+    from repro.api import FleetSpec, QuantileFleet, TopologySpec
+    from repro.core.program import test_instances
+
+    def crc(x):
+        return np.asarray(chunk_crc32(np.asarray(x, np.float32)), np.int64)
+
+    def e15(topo):
+        spec = FleetSpec(num_groups=E15_G, quantiles=(0.5,),
+                         chunk_t=E15_CHUNK_T, topology=topo)
+        return QuantileFleet.create(spec, seed=E15_SEED)
+
+    items = e15_items()
+    out = {"place/e15/items_crc32": crc(items)}
+    out["place/e15/single/estimate_crc32"] = crc(
+        e15(None).ingest(items).estimate())
+    t24, t42 = TopologySpec(data=2, lanes=4), TopologySpec(data=4, lanes=2)
+    full = e15(t24).ingest(items)
+    out["place/e15/full/replica_crc32"] = plane_crc32s(
+        full.state.replica_planes())
+    out["place/e15/full/estimate_crc32"] = crc(full.estimate())
+    del full
+    half = E15_T // 2
+    fl = e15(t24).ingest(items[:half])
+    out["place/e15/elastic/half"] = plane_crc32s(fl.state.replica_planes())
+    est = np.asarray(fl.estimate())
+    fl = fl.reshard(t42)
+    assert np.array_equal(np.asarray(fl.estimate()), est)
+    fl = fl.ingest(items[half:])
+    out["place/e15/elastic/ingested"] = plane_crc32s(
+        fl.state.replica_planes())
+    fl = fl.sync()
+    out["place/e15/elastic/synced"] = plane_crc32s(fl.state.replica_planes())
+    est = np.asarray(fl.estimate())
+    out["place/e15/elastic/estimate_crc32"] = crc(est)
+    fl = fl.reshard(t24)
+    assert np.array_equal(np.asarray(fl.estimate()), est)
+    fl = fl.grow_groups(E15_GROW)
+    out["place/e15/elastic/grown"] = plane_crc32s(fl.state.replica_planes())
+    out["place/e15/elastic/canonical"] = plane_crc32s(tuple(
+        np.asarray(p)[None] for p in fl._lane_sketch().planes()))
+    del fl, items
+
+    six = six_items()
+    out["place/six/items_crc32"] = crc(six)
+    for prog in test_instances():
+        spec = FleetSpec(num_groups=SIX_G, quantiles=SIX_QS,
+                         chunk_t=SIX_CHUNK_T, program=prog,
+                         topology=TopologySpec(data=SIX_DATA,
+                                               lanes=SIX_LANES))
+        fl = QuantileFleet.create(spec, seed=SIX_SEED).ingest(six)
+        fields = prog.layout.plane_fields
+        for f, p in zip(fields, fl.state.replica_planes()):
+            out[f"place/six/{prog.family}/replicas/{f}"] = p
+        for f, p in zip(fields, fl.state.merged_planes()):
+            out[f"place/six/{prog.family}/merged/{f}"] = p
+    return out
+
+
 def golden_checkpoints(root):
     """Write the JAX package's checkpoints under ``root`` (one directory
     per fleet: ``2u``, ``2u-window``, ``slo``) and return {key: array} of
@@ -632,6 +730,7 @@ def build(ckpt_root=None):
     arrays.update(golden_checkpoints(ckpt_root))
     arrays.update(golden_service())
     arrays.update(golden_eval())
+    arrays.update(golden_placement())
     return arrays
 
 

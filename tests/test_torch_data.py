@@ -247,7 +247,9 @@ def test_prefetch_relays_source_errors_with_type(depth):
 
 
 def test_closing_the_stream_stops_the_worker():
-    before = len(prefetch_threads())
+    # Track this stream's own worker: an earlier test's worker may still
+    # be exiting while this one runs, so a bare thread count races.
+    before = set(prefetch_threads())
 
     def endless():
         k = 0
@@ -257,13 +259,12 @@ def test_closing_the_stream_stops_the_worker():
 
     it = tpipe.prefetch_to_device(endless(), depth=2, device="cpu")
     assert int(next(it)[0]) == 0
-    assert len(prefetch_threads()) == before + 1
+    started = set(prefetch_threads()) - before
+    assert len(started) == 1
+    (worker,) = started
     it.close()
-    deadline = time.monotonic() + JOIN_S
-    while len(prefetch_threads()) > before and \
-            time.monotonic() < deadline:
-        time.sleep(0.005)
-    assert len(prefetch_threads()) == before
+    worker.join(timeout=JOIN_S)
+    assert not worker.is_alive()
 
 
 def test_custom_transfer_is_applied_in_order():

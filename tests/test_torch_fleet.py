@@ -11,7 +11,7 @@ import torch
 from repro.api import FleetSpec as JFleetSpec
 from repro.api import QuantileFleet as JQuantileFleet
 from repro.core import program as jprogram
-from repro_torch.api import FleetSpec, QuantileFleet, from_jax_state
+from repro_torch.api import FleetSpec, QuantileFleet, TopologySpec, from_jax_state
 from repro_torch.core import program as tprogram
 from repro_torch.resilience import chaos
 
@@ -146,7 +146,8 @@ def test_cursor_and_spec_rules():
     assert spec.memory_words() == 1
     np.testing.assert_array_equal(spec.lane_quantiles(),
                                   np.tile(np.float32([0.25, 0.75]), 3))
-    with pytest.raises(NotImplementedError, match="single-device"):
+    with pytest.raises(ValueError,
+                       match="topology must be a parallel.TopologySpec"):
         FleetSpec(num_groups=3, topology=object())
     with pytest.raises(ValueError, match="contradicts"):
         FleetSpec(num_groups=3, algo="1u", program="2u-window")
@@ -285,9 +286,12 @@ def test_backend_field_rules():
     # Spelled through a dict: the JAX package's source lint
     # (check_topology_spellings) refuses the deprecated placement
     # spelling inside FleetSpec(...) calls anywhere in the tree.
-    sharded = {"backend": "sharded"}
-    with pytest.raises(ValueError, match="item 2"):
-        FleetSpec(num_groups=3, **sharded)
+    sharded = {"backend": "sharded", "mesh": ("cpu",) * 2}
+    with pytest.warns(DeprecationWarning, match="deprecated placement"):
+        legacy = FleetSpec(num_groups=3, **sharded)
+    assert legacy == FleetSpec(num_groups=3, topology=TopologySpec(
+        lanes=2, devices=("cpu",) * 2))
+    assert legacy.backend == "sharded"
     with pytest.raises(ValueError, match="backend must be one of"):
         FleetSpec(num_groups=3, backend="pallas")
     assert FleetSpec(num_groups=3, backend="jnp") != spec

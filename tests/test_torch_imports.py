@@ -43,7 +43,10 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
               "repro_torch.core.baselines.exact",
               "repro_torch.core.baselines.protocol",
               "repro_torch.api.estimators", "repro_torch.api.lint",
-              "repro_torch.kernels.ref"):
+              "repro_torch.kernels.ref", "repro_torch.parallel",
+              "repro_torch.parallel.topology", "repro_torch.parallel.mesh2d",
+              "repro_torch.parallel.group_sharding",
+              "repro_torch.train.elastic"):
         assert m in mods
     code = (
         "import importlib, sys\n"

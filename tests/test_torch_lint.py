@@ -10,14 +10,15 @@ import sys
 import pytest
 
 from repro_torch.api.lint import (check_programs, check_public_api,
-                                  iter_subpackages)
+                                  check_topology_spellings, iter_subpackages)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
 PORT_PACKAGES = ("repro_torch", "repro_torch.api", "repro_torch.core",
                  "repro_torch.core.baselines", "repro_torch.kernels",
                  "repro_torch.serve", "repro_torch.service",
-                 "repro_torch.resilience", "repro_torch.data")
+                 "repro_torch.resilience", "repro_torch.data",
+                 "repro_torch.parallel")
 
 
 def test_every_dunder_all_name_resolves():
@@ -57,11 +58,34 @@ def test_api_exports_match_jax():
     import repro.api as japi
     import repro_torch.api as tapi
 
-    # The placement surface waits for the parallel/ port; from_jax_state
-    # is the port's own.
-    assert set(japi.__all__) - {"TopologySpec",
-                                "check_topology_spellings"} == \
-        set(tapi.__all__) - {"from_jax_state"}
+    # from_jax_state is the port's own.
+    assert set(japi.__all__) == set(tapi.__all__) - {"from_jax_state"}
+
+
+def test_topology_spellings_scan_the_tree_as_jax_does(tmp_path):
+    """The port's source scan passes on the tree and counts what the JAX
+    package's does (both skip their own shims), and names a FleetSpec call
+    that spells the deprecated placement, in code but not in prose."""
+    from repro.api.lint import check_topology_spellings as jax_check
+
+    assert check_topology_spellings() == jax_check() - 2
+    # The sources are assembled so that this file spells no offending
+    # call itself (both lints scan it).
+    spec = "Fleet" + "Spec("
+    src = tmp_path / "src"
+    src.mkdir()
+    (src / "ok.py").write_text(
+        f'{spec}num_groups=2, backend="jnp")\n'
+        f'# {spec}backend="sharded")\n'
+        f'"""{spec}num_groups=2, mesh=m)"""\n'
+        f'x = {spec}num_groups=2, topology=t) if mesh == 1 else None\n')
+    assert check_topology_spellings(str(tmp_path)) == 1
+    (src / "bad.py").write_text(
+        f'a = 1\nspec = {spec}num_groups=4,\n'
+        '                 backend="sharded")\n'
+        f'{spec}num_groups=2, mesh=devices)\n')
+    with pytest.raises(AssertionError, match=r"src/bad.py:2\n  src/bad.py:4"):
+        check_topology_spellings(str(tmp_path))
 
 
 def test_lint_main_builds_nothing():
@@ -84,4 +108,5 @@ def test_lint_main_builds_nothing():
     lines = out.stdout.strip().splitlines()
     assert lines[0].startswith("public API OK:")
     assert lines[1].startswith("lane programs OK: 6 registered families")
+    assert lines[2].startswith("topology spellings OK:")
     assert lines[-1] == "[]"

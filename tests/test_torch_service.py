@@ -3,7 +3,9 @@
 * CPU: ``StreamingService`` answers (trusted and DP tenant reads) at
   every chunk boundary for ``2u``, ``2u-decay``, ``2u-window`` and
   ``2u-dp`` equal to the JAX service's on its ``jnp`` and ``fused``
-  backends; threaded queries under background ingest equal to a JAX
+  backends and its ``sharded`` and ``mesh2d`` placement legs (the port's
+  on tuples of CPU devices: lanes over 2, and 2 replicas × 2 lane
+  shards); threaded queries under background ingest equal to a JAX
   replay at their cursors; a snapshot that survives donated sparse
   rounds; a query stall that leaves ingest unperturbed and a retry that
   answers exactly; tenant gating; a ``2u-dp`` fleet not noised twice;
@@ -16,7 +18,8 @@
 * Card (marker ``cuda``, skipped without a CUDA device): the service on
   the card (staging on a side stream, the dense kernel, the telemetry
   fleet) equal to the service on the CPU, synchronously and with a
-  reader thread, and the goldens on the card.
+  reader thread, on the placement legs too, and the goldens on the
+  card.
 
 Tolerance everywhere: bit-exact (float32 compared as int32 bit
 patterns). Every thread join and queue wait takes a timeout. JAX is
@@ -32,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import FleetSpec, QuantileFleet
+from repro_torch.api import FleetSpec, QuantileFleet, TopologySpec
 from repro_torch.core.program import make_program
 from repro_torch.kernels import frugal_update as tkernel
 from repro_torch.resilience import FaultPlan, QueryStalled, chaos
@@ -65,23 +68,40 @@ def make_chunks(seed=0, n=N_CHUNKS, t=CHUNK_T, g=G):
             for _ in range(n)]
 
 
-def spec(program="2u", g=G, **kw):
+# The placement legs of tests/test_service.py: the port's lanes over 2
+# CPU devices ("sharded") and 2 replicas x 2 lane shards ("mesh2d"). The
+# JAX package runs them on its one CPU device: single placement and its
+# replica loop (1-D equals single; a replica's lanes do not depend on the
+# lane split).
+PLACEMENTS = {"sharded": TopologySpec(lanes=2, devices=("cpu",) * 2),
+              "mesh2d": TopologySpec(data=2, lanes=2, devices=("cpu",) * 4)}
+
+
+def spec(program="2u", g=G, backend="fused", **kw):
+    topo = PLACEMENTS.get(backend)
     return FleetSpec(num_groups=g, quantiles=(0.5, 0.9), chunk_t=CHUNK_T,
                      program=make_program(program, **PROGRAMS[program]),
-                     **kw)
+                     topology=topo,
+                     backend="fused" if topo is not None else backend, **kw)
 
 
 def jax_spec(program="2u", backend="jnp", g=G):
     from repro.api import FleetSpec as JFleetSpec
+    from repro.api import TopologySpec as JTopologySpec
     from repro.core.program import make_program as jmake
 
+    topo = {"sharded": JTopologySpec(),
+            "mesh2d": JTopologySpec(data=2)}.get(backend)
     return JFleetSpec(num_groups=g, quantiles=(0.5, 0.9), chunk_t=CHUNK_T,
-                      backend=backend,
+                      backend="fused" if topo is not None else backend,
+                      topology=topo,
                       program=jmake(program, **PROGRAMS[program]))
 
 
-def service(program="2u", seed=0, g=G, device="cpu", **kw):
-    return StreamingService(spec(program, g=g), seed=seed, device=device,
+def service(program="2u", seed=0, g=G, device="cpu", backend="fused",
+            **kw):
+    return StreamingService(spec(program, g=g, backend=backend), seed=seed,
+                            device=device,
                             tenants=[TenantPolicy("partner",
                                                   epsilon=PARTNER_EPS)],
                             **kw)
@@ -118,18 +138,23 @@ def jax_replay(program, seed, chunks, backend="jnp", g=G):
 
 
 # ------------------------------------------------------ snapshot consistency
-@pytest.mark.parametrize("backend", ["jnp", "fused"])
+@pytest.mark.parametrize("backend", ["jnp", "fused", "sharded", "mesh2d"])
 @pytest.mark.parametrize("program", list(PROGRAMS))
 def test_snapshot_at_every_boundary_matches_jax(program, backend):
     chunks = make_chunks(seed=2)
-    got = boundary_answers(service(program, seed=11), chunks)
+    port_backend = backend if backend in PLACEMENTS else "fused"
+    svc = service(program, seed=11, backend=port_backend)
+    assert svc.fleet.spec.backend == port_backend
+    got = boundary_answers(svc, chunks)
     want = boundary_answers(jax_service(program, backend, seed=11), chunks)
     for i, ((raw, dp), (jraw, jdp)) in enumerate(zip(got, want)):
         assert raw.shape == (G, 2) and dp.shape == (G, 2)
         assert_bits_equal(raw, jraw, f"trusted read at boundary {i}")
         assert_bits_equal(dp, jdp, f"partner read at boundary {i}")
-    # and the port's own single-threaded replay at every cursor
-    ref = QuantileFleet.create(spec(program), seed=11, device="cpu")
+    # and the port's own single-threaded replay at every cursor, on the
+    # service's placement
+    ref = QuantileFleet.create(spec(program, backend=port_backend), seed=11,
+                               device="cpu")
     for i, c in enumerate(chunks):
         ref = ref.ingest(c)
         assert_bits_equal(got[i + 1][0], Snapshot.capture(ref).estimate())
@@ -528,6 +553,36 @@ def test_card_threaded_service_equals_cpu_replay(card):
             assert_bits_equal(seen[cursor][0], snap.estimate())
             assert_bits_equal(seen[cursor][1], snap.estimate_dp(PARTNER_EPS))
     assert svc.stats()["counters"]["chunks_ingested"] == 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["sharded", "mesh2d", "mesh2d-loop"])
+def test_card_placed_service_equals_cpu_service(card, placement):
+    """The placement legs on the card (per-device fleets on repeated
+    entries of the card, and the replica loop) answer as the same
+    placement on CPU devices does."""
+    cpu_topo = PLACEMENTS[placement.split("-")[0]]
+    card_topo = TopologySpec(data=cpu_topo.data, lanes=cpu_topo.lanes,
+                             devices=None if placement.endswith("loop")
+                             else ("cuda:0",) * cpu_topo.num_devices)
+
+    def placed(topo, device):
+        return StreamingService(
+            FleetSpec(num_groups=512, quantiles=(0.5, 0.9), chunk_t=CHUNK_T,
+                      program=make_program("2u-window", window=24),
+                      topology=topo), seed=6, device=device,
+            tenants=[TenantPolicy("partner", epsilon=PARTNER_EPS)])
+
+    chunks = make_chunks(seed=4, g=512)
+    before = tkernel.launch_count
+    svc = placed(card_topo, card)
+    assert svc.fleet.device.type == "cuda"
+    got = boundary_answers(svc, chunks)
+    assert tkernel.launch_count - before >= N_CHUNKS
+    want = boundary_answers(placed(cpu_topo, "cpu"), chunks)
+    for i, ((raw, dp), (wraw, wdp)) in enumerate(zip(got, want)):
+        assert_bits_equal(raw, wraw, f"trusted read at boundary {i}")
+        assert_bits_equal(dp, wdp, f"partner read at boundary {i}")
 
 
 @pytest.mark.cuda
