@@ -110,7 +110,8 @@ each or more:
      (backend "jnp"), the fraction of streams within 0.1 relative mass
      error, B1's launches and producer (TMA where G % 4 == 0, cp.async
      else), ms per ingest and of B1's launches alone on the stream (CUDA
-     events), items/s, B1's share of its bound, peak device memory; a
+     events; at the tuned block size, as the fleet launches them),
+     items/s, B1's share of its bound, peak device memory; a
      FrugalEstimator (q50 and q90, 1u and 2u: B1 at G = 1) over one E3
      stream, equal to the plain version and the JAX package's; GK,
      q-digest and Selection on the first 40 E3 size streams at q = 0.5,
@@ -139,12 +140,36 @@ each or more:
      (c) the six programs at 1000 groups x 2 quantiles, T = 700, chunk_t 64
      under TopologySpec(data=3, lanes=2) in both modes: replica and merged
      planes equal to the golden file's, the card's sync at R = 3 equal to
-     the numpy fold.
+     the numpy fold;
+ 12. the roofline layer on the card (repro_torch.roofline): (a) detection
+     (detect_platform "gpu", detect_device_kind the card's name,
+     detect_hw gpu-h100 with the device's SM count) and each family's
+     issue-slot table at or below phase 1's SASS per lane-tick; (d) at
+     every B1 launch shape of phases 5, 9, 10 and 11 (recorded from the
+     entry points) and E16's: the tuner's block size, the model's plan
+     (lanes per thread, tile rows and columns, shared memory, blocks)
+     equal to dense_launch_info, 256 at phases 5 and 9, and the bound per
+     launch, per E15 ingest and per data=2 chunk period; (f) E16's model
+     check (analytic bytes at or above the operand floor); (c) the six
+     programs at E3's shape, tuned blocks equal to 256; (e) B1 alone at
+     the E3 and E5 blocks, at the tuned block size and at 256 (CUDA
+     events); (b) E16 in full mode (benchmarks/bench_roofline.py: a
+     [4096, 2^22] block of integers 0..999 made on the card, 1u / 2u /
+     2u-window at Q = 1 and 2u at Q = 3) through frugal_update_auto at
+     tuned blocks, one launch each: the prediction, measured items/s,
+     fraction_of_roofline beside E16's 0.35 gate (information), and (c)
+     the planes equal at 256, as 512-row launches, to the plain version
+     over the block and over a 2^16-column slice at its lane offset.
 
-The last line is {"ok": true, "device": {...}}.
+frugal_update_auto launches B1 at the roofline autotuner's block size
+(repro_torch.roofline.autotune: 256 at the shapes of phases 5 and 9,
+fewer threads at phase 10's). The last line is {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import importlib.util
 import itertools
@@ -166,60 +191,6 @@ SCATTER_SOURCE = "src/repro_torch/kernels/csrc/frugal_scatter.cu"
 TPU_KERNEL = "src/repro/kernels/frugal_update.py:393"
 TPU_KERNEL_B2 = "src/repro/kernels/frugal_update.py:341"
 TPU_KERNEL_B3 = "src/repro/kernels/frugal_update.py:271"
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-
-# The issue slots Frugal-2U needs per lane-tick, counted on its expression
-# tree (frugal_tick.cuh: ft_lane_hash, ft_bits_to_uniform, ft_tick_2u; the
-# same nodes as core/rng.py and core/frugal.py) at one SASS instruction
-# each, with the fusions sm_90 offers: a multiply-add (IMAD) takes a
-# multiply with the add after it, a three-input logic op (LOP3) and a
-# compare with the `and` after it (FSETP.AND) one slot each, the mantissa
-# fill's shift-and-or one LEA.HI (the or adds into zero bits), and a
-# select whose one arm is the register's old value is a predicated
-# instruction, no slot of its own. Nothing of the loop's bookkeeping (tick
-# counter, item address, branch), the item and table loads or register
-# moves is counted. The count (44) is below the 45 arithmetic instructions
-# per lane-tick of the compiled tick loop (nvcc 12.8, sm_90a; PERF.md), so
-# it is a floor the kernel can be held to. Each row is {class: (slots,
-# thread-operations per clock per SM on sm_90)}; the rates are the CUDA
-# C++ Programming Guide's throughput table for compute capability 9.0.
-# Rounding and selects have no row there: they are priced only through
-# the issue limit below, which can only lower the bound.
-OPS_2U_LANE_TICK = {
-    # lane round of the counter hash: tick entry + lane id * key (IMAD),
-    # then fmix32 (3 shift-xor pairs, 2 multiplies); mantissa fill (LEA.HI).
-    "int32 multiply-add": (3, 64),
-    "int32 shift": (3, 64),
-    "int32 logic": (3, 64),
-    "int32 shift-add": (1, 64),
-    # mantissa fill minus 1; 2U: step +-1 (x2), m +- ceil (x2), overshoot
-    # difference and its step correction (x2 each, the correction
-    # predicated on the overshoot).
-    "fp32 add": (9, 128),
-    # 2U: item vs m with u vs 1-q or q (2 each), sign > 0, sign < 0,
-    # step > 0 (x2), overshoot (x2), clamp step > 1 with its sign (x2).
-    "compare": (12, 64),
-    "fp32 round (ceil)": (2, None),
-    # 2U: +-1 (x2), ceil or 1 (x2); m: the overshoot's item or the
-    # branch's m, taken for the branch that moved (x2), then new or old
-    # (1); step: the clamp (x2), new or old (1); sign: +1 or -1 where a
-    # branch moved (1).
-    "select": (11, None),
-}
-# Decayed 2U (ft_tick_2u_decay) adds to the 2U tick: floor - (floor - step)
-# * alpha (two subtractions, one multiply; the last subtraction predicated
-# on the gate, so the select takes no slot) and its gate (item == item,
-# step < floor).
-OPS_2U_DECAY_LANE_TICK = dict(
-    OPS_2U_LANE_TICK, **{"fp32 add": (11, 128), "fp32 multiply": (1, 128),
-                         "compare": (14, 64)})
-# The (seed, t) round of the hash is the same for every lane: once per
-# tick, seed + t * key (IMAD) and fmix32.
-OPS_TICK = {"int32 multiply-add": (3, 64), "int32 shift": (3, 64),
-            "int32 logic": (3, 64)}
-# A sparse event also advances its lane's clock by its mask.
-OPS_CLOCK = {"int32 add": (1, 64)}
-ISSUE_PER_SM_CLOCK = 128   # 4 schedulers x 32 lanes; = the FP32 FMA rate
 
 
 def fail(msg: str) -> None:
@@ -1014,27 +985,47 @@ def event_ms(torch, fn, reps):
     return times
 
 
-def operation_bound_ms(work, sm_clocks_per_s):
-    """(ms, what binds): the least time the card needs for ``work``, pairs
-    of (operation table, times it runs). Each class takes its operations
-    over its own rate; every operation also takes one of the SM's issue
-    slots."""
-    counts = {}
-    for table, n in work:
-        for cls, (ops, rate) in table.items():
-            counts[cls] = (counts.get(cls, (0, rate))[0] + ops * n, rate)
-    clocks = {cls: ops / rate for cls, (ops, rate) in counts.items() if rate}
-    clocks["issue"] = sum(ops for ops, _ in counts.values()) \
-        / ISSUE_PER_SM_CLOCK
-    binding = max(clocks, key=clocks.get)
-    return clocks[binding] / sm_clocks_per_s * 1e3, binding
-
-
 def card_sm_clocks_per_s(torch):
     """(SM clocks per second over the whole card, max SM clock in Hz)."""
     props = torch.cuda.get_device_properties(0)
     clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     return props.multi_processor_count * clock_hz, clock_hz
+
+
+def card_hw(torch):
+    """The card's HwSpec in the roofline registry: gpu-h100, with the
+    device's own SM count (the model prices the operations over
+    ``cores`` SMs)."""
+    from repro_torch.roofline import detect_hw
+
+    hw = detect_hw("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if hw.name != "gpu-h100" or hw.cores != sms:
+        fail(f"roofline: the card reads as HwSpec {hw.name!r} with "
+             f"{hw.cores} SMs, the device has {sms}: this run prices an "
+             "H100 (gpu-h100, 132 SMs)")
+    return hw
+
+
+def tuned_block_g(torch, prog, g, t, q):
+    """The roofline autotuner's block size on the card for [t, g] items at
+    q lanes per group (what frugal_update_auto launches)."""
+    from repro_torch.roofline import autotune_blocks
+
+    return autotune_blocks(prog, g, t, q, hw=card_hw(torch))[0]
+
+
+def dense_bound(torch, prog, g, t, q, real_items=None):
+    """The roofline model of one dense call of [t, g] items at q lanes per
+    group (repro_torch.roofline.predict_kernel, block_t = t: the
+    function's bytes, each input read and each output written once), its
+    operations priced at the card's maximum SM clock."""
+    from repro_torch.roofline import predict_kernel
+
+    _, clock_hz = card_sm_clocks_per_s(torch)
+    return predict_kernel(g, t, q, prog.layout, block_g=256, block_t=t,
+                          hw=card_hw(torch), sm_clock_hz=clock_hz,
+                          real_items=real_items)
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
@@ -1058,6 +1049,7 @@ def phase_timing(torch, loops, launches, card):
     one bound."""
     from repro_torch.core import program as program_mod
     from repro_torch.kernels import frugal_update as fk
+    from repro_torch.roofline import kernel_model as km
 
     dev = torch.device("cuda")
     prog = program_mod.make_program("2u")
@@ -1112,16 +1104,15 @@ def phase_timing(torch, loops, launches, card):
                                                  res["kernel_b2"])):
         fail("full-width chunk: 128-row launches differ from one launch")
 
-    nbytes = (items.numel() + quantile.numel()) * 4 \
-        + 2 * sum(w.numel() * w.element_size() for w in words)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    pred = dense_bound(torch, prog, G_FULL, CHUNK_T, q)
+    nbytes = int(pred["bytes_total"])
+    bytes_ms = pred["bandwidth_s"] * 1e3
+    ops_ms, ops_binding = pred["operations_s"] * 1e3, \
+        pred["operations_bound_by"]
     sm_clocks_per_s, clock_hz = card_sm_clocks_per_s(torch)
     lane_ticks = CHUNK_T * lanes
-    ops_ms, ops_binding = operation_bound_ms(
-        ((OPS_2U_LANE_TICK, lane_ticks), (OPS_TICK, CHUNK_T)),
-        sm_clocks_per_s)
     sass_ms = (loops["2u"] * lane_ticks
-               / (sm_clocks_per_s * ISSUE_PER_SM_CLOCK) * 1e3)
+               / (sm_clocks_per_s * km.ISSUE_PER_SM_CLOCK) * 1e3)
     ms, ms_b2 = statistics.median(kernel_ms), statistics.median(b2_ms)
     bound = max(bytes_ms, ops_ms)
     say("timing", kernel="B1", kernel_ms=",".join(f"{v:.4f}"
@@ -1134,8 +1125,7 @@ def phase_timing(torch, loops, launches, card):
         plain_ms=f"{plain_b2_ms[0]:.2f}",
         bound_share=f"{bound / ms_b2:.4f}")
     say("timing", bytes=nbytes, bytes_ms=f"{bytes_ms:.4f}",
-        operations_per_lane_tick=sum(
-            ops for ops, _ in OPS_2U_LANE_TICK.values()),
+        operations_per_lane_tick=km.issue_slots(km.OPS_2U_LANE_TICK),
         operations_ms=f"{ops_ms:.4f}", operations_bound_by=ops_binding,
         lane_ticks=lane_ticks, sms=round(sm_clocks_per_s / clock_hz),
         max_sm_clock_hz=f"{clock_hz:.4e}",
@@ -1144,16 +1134,14 @@ def phase_timing(torch, loops, launches, card):
     say("timing", sass_per_lane_tick=f"{loops['2u']:.2f}",
         sass_issue_ms=f"{sass_ms:.4f}",
         note="diagnostic: this build's loop, not the function's need")
-    dense_split(torch, "dense", prog, items, words, quantile, q,
-                OPS_2U_LANE_TICK, card)
+    dense_split(torch, "dense", prog, items, words, quantile, q, card)
     svc_prog = program_mod.make_program("2u-decay", half_life=1 << 16)
     svc_items = torch.empty((CHUNK_T, SVC_G), device=dev).normal_(
         50.0, 15.0, generator=gen)
     svc_words = tuple(w.contiguous() for w in svc_prog.layout.pack_planes(
         random_planes(torch, svc_prog, SVC_G, gen, dev)))
     dense_split(torch, "service", svc_prog, svc_items, svc_words,
-                torch.full((SVC_G,), 0.5, device=dev), 1,
-                OPS_2U_DECAY_LANE_TICK, card)
+                torch.full((SVC_G,), 0.5, device=dev), 1, card)
     del svc_items
     return [kernel_entry("frugal_program_dense", KERNEL_SOURCE, TPU_KERNEL,
                          launches, errs["kernel"], ms, plain_ms[0],
@@ -1170,8 +1158,7 @@ SPLIT_T = (64, 512)
 SPLIT_QUEUED = 10       # launches queued back to back per device timing
 
 
-def dense_split(torch, label, prog, items, words, quantile, q, work,
-                card):
+def dense_split(torch, label, prog, items, words, quantile, q, card):
     """B1 over the first 64 and all 512 rows of ``items`` [512, G] at Q =
     ``q``, and B2 over all 512 as 128-row launches. Two timings each: one
     launch between CUDA events, median of 7 after a warm-up (the method of
@@ -1184,7 +1171,7 @@ def dense_split(torch, label, prog, items, words, quantile, q, work,
 
     g = items.shape[1]
     lanes = g * q
-    sm_clocks_per_s, clock_hz = card_sm_clocks_per_s(torch)
+    _, clock_hz = card_sm_clocks_per_s(torch)
     ms, dev_ms, bound = {}, {}, {}
 
     def b1(x):
@@ -1203,11 +1190,7 @@ def dense_split(torch, label, prog, items, words, quantile, q, work,
         ms[t] = statistics.median(event_ms(torch, fn, 8)[1:])
         dev_ms[t] = statistics.median(
             queued_ms(torch, fn, SPLIT_QUEUED, clock_hz)[0])
-        nbytes = (t * g + lanes) * 4 + 2 * sum(
-            w.numel() * w.element_size() for w in words)
-        ops_ms, _ = operation_bound_ms(((work, t * lanes), (OPS_TICK, t)),
-                                       sm_clocks_per_s)
-        bound[t] = max(nbytes / HBM_BYTES_PER_S * 1e3, ops_ms)
+        bound[t] = dense_bound(torch, prog, g, t, q)["bound_s"] * 1e3
     b2_ms = statistics.median(event_ms(torch, b2, 8)[1:])
     b2_dev = statistics.median(queued_ms(torch, b2, 3, clock_hz)[0])
     lo, hi = SPLIT_T
@@ -1295,10 +1278,12 @@ def phase_scatter_timing(torch, gm, launches):
     ``launches`` is (per-round fleets', SLO fleet's) from phase 6."""
     from repro_torch.core import program as program_mod
     from repro_torch.kernels import frugal_update as fk
+    from repro_torch.roofline import kernel_model as km
 
     dev = torch.device("cuda")
     prog = program_mod.make_program("2u")
     sm_clocks_per_s, clock_hz = card_sm_clocks_per_s(torch)
+    hw = card_hw(torch)
 
     def fresh(n_lanes):
         return (torch.zeros(n_lanes, device=dev),
@@ -1355,9 +1340,9 @@ def phase_scatter_timing(torch, gm, launches):
             + mask.element_size()
         per_run = q.element_size() + 2 * sum(x.element_size() for x in kp)
         nbytes = k * per_slot + len(runs) * per_run
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms, ops_binding = operation_bound_ms(
-            ((OPS_2U_LANE_TICK, k), (OPS_TICK, k), (OPS_CLOCK, k)),
+        bytes_ms = nbytes / hw.hbm_bw * 1e3
+        ops_ms, ops_binding = km.operation_bound_ms(
+            ((km.OPS_2U_LANE_TICK, k), (km.OPS_TICK, k), (km.OPS_CLOCK, k)),
             sm_clocks_per_s)
         ms = statistics.median(device_ms)
         floor_ms = longest * tick_ms[mask is not None]
@@ -2096,7 +2081,7 @@ def phase_service(torch, gm, card):
             prog, items, words, quantile, seed)
 
     kernel_ms = event_ms(torch, kernel, 11)[1:]
-    sm_clocks_per_s, clock_hz = card_sm_clocks_per_s(torch)
+    _, clock_hz = card_sm_clocks_per_s(torch)
     device_ms, host_us = queued_ms(torch, kernel, SPLIT_QUEUED, clock_hz)
     plain_ms = event_ms(torch, plain, 3)[1:]
     err = max_abs_err(prog.layout.unpack_words(res["kernel"]),
@@ -2104,13 +2089,11 @@ def phase_service(torch, gm, card):
     if not same_bits(torch, res["kernel"], res["plain"]):
         fail(f"service chunk: the kernel differs from the plain version "
              f"(max abs err {err})")
-    nbytes = (items.numel() + quantile.numel()) * 4 \
-        + 2 * sum(w.numel() * w.element_size() for w in words)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    lane_ticks = SVC_CHUNK_T * SVC_G
-    ops_ms, ops_binding = operation_bound_ms(
-        ((OPS_2U_DECAY_LANE_TICK, lane_ticks), (OPS_TICK, SVC_CHUNK_T)),
-        sm_clocks_per_s)
+    pred = dense_bound(torch, prog, SVC_G, SVC_CHUNK_T, 1)
+    nbytes = int(pred["bytes_total"])
+    bytes_ms = pred["bandwidth_s"] * 1e3
+    ops_ms, ops_binding = pred["operations_s"] * 1e3, \
+        pred["operations_bound_by"]
     ms = statistics.median(kernel_ms)
     bound = max(bytes_ms, ops_ms)
     say("service", kernel="B1", chunk=f"[{SVC_CHUNK_T},{SVC_G}]",
@@ -2143,20 +2126,6 @@ def phase_service(torch, gm, card):
 
 # -------------------------------------------------------------- phase 10
 EVAL_REPS = 3          # timed ingests of each fleet on the stream
-# The dispatch slots Frugal-1U needs per lane-tick, counted as for 2U above:
-# the lane round of the hash and the mantissa fill (the rows of the 2U
-# table), then u vs 1-q and item vs m for each branch (4 compares, each
-# with its `and`) and the two predicated moves of m (2 fp32 adds).
-OPS_1U_LANE_TICK = {
-    "int32 multiply-add": (3, 64),
-    "int32 shift": (3, 64),
-    "int32 logic": (3, 64),
-    "int32 shift-add": (1, 64),
-    "fp32 add": (3, 128),
-    "compare": (4, 64),
-}
-EVAL_LANE_TICK = {"1u": OPS_1U_LANE_TICK, "2u": OPS_2U_LANE_TICK}
-
 
 def eval_fleet(torch, gm, name, items, dev_items, algo, q, key, data,
                sorted_streams, card):
@@ -2207,12 +2176,15 @@ def eval_fleet(torch, gm, name, items, dev_items, algo, q, key, data,
         QuantileFleet.create(spec, key=key).state.planes()))
     res = {}
 
+    # B1 at the tuner's block size, as the fleet launches it.
+    block_g = tuned_block_g(torch, prog, g, gm.EVAL_CHUNK_T, 1)
+
     def kernel():
         w = words0
         for r0 in range(0, t_len, gm.EVAL_CHUNK_T):
             w = fk.frugal_program_dense(
                 prog, dev_items[r0:r0 + gm.EVAL_CHUNK_T], w, quantile,
-                fleet.cursor.seed, t_offset=r0)
+                fleet.cursor.seed, t_offset=r0, block_g=block_g)
         res["w"] = w
 
     kernel_ms = event_ms(torch, kernel, EVAL_REPS + 1)[1:]
@@ -2220,12 +2192,10 @@ def eval_fleet(torch, gm, name, items, dev_items, algo, q, key, data,
                      fleet.state.planes()):
         fail(f"eval {tag}: B1's launches alone differ from the fleet's")
     real = int(np.isfinite(items).sum())
-    sm_clocks_per_s, _ = card_sm_clocks_per_s(torch)
-    ops_ms, ops_binding = operation_bound_ms(
-        ((EVAL_LANE_TICK[algo], real), (OPS_TICK, t_len)), sm_clocks_per_s)
-    nbytes = items.size * 4 + g * 4 \
-        + 2 * sum(w.numel() * w.element_size() for w in words0)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    pred = dense_bound(torch, prog, g, t_len, 1, real_items=real)
+    bytes_ms = pred["bandwidth_s"] * 1e3
+    ops_ms, ops_binding = pred["operations_s"] * 1e3, \
+        pred["operations_bound_by"]
     bound = max(bytes_ms, ops_ms)
     errs = [relative_mass_error(float(e), s, q)
             for e, s in zip(est, sorted_streams)]
@@ -2237,7 +2207,7 @@ def eval_fleet(torch, gm, name, items, dev_items, algo, q, key, data,
         estimates="bit-identical to the JAX package's")
     say("eval", workload=name, algo=algo, q=q,
         ingest_ms=",".join(f"{v:.4f}" for v in ingest_ms),
-        b1_ms=",".join(f"{v:.4f}" for v in kernel_ms),
+        b1_ms=",".join(f"{v:.4f}" for v in kernel_ms), b1_block_g=block_g,
         items_per_s=f"{real / ms * 1e3:.4e}", main_run_s=f"{main_s:.4f}",
         bound_ms=f"{bound:.6f}", bound_by="bytes" if bytes_ms >= ops_ms
         else f"operations ({ops_binding})",
@@ -2252,7 +2222,8 @@ def eval_fleet(torch, gm, name, items, dev_items, algo, q, key, data,
 
 
 def phase_eval(torch, gm, card):
-    """Phase 10; returns B1's launches in the phase's main runs."""
+    """Phase 10; returns B1's launches in the phase's main runs and
+    {workload: its item block on the card} (for phase 12)."""
     import numpy as np
     from repro_torch.api import FrugalEstimator
     from repro_torch.core import baselines
@@ -2264,6 +2235,7 @@ def phase_eval(torch, gm, card):
     data = np.load(GOLDEN)
     key = data["eval/key_words"]
     launches, fracs, seen, size, checks = 0, {}, {}, None, []
+    blocks = {}
     for name in gm.EVAL_DATASETS:
         t0 = time.perf_counter()
         ss = gm.eval_streams(streams, name)
@@ -2280,7 +2252,7 @@ def phase_eval(torch, gm, card):
         if name == "e3_size":
             size = ss
         sorted_ss = [sorted(s.tolist()) for s in ss]
-        dev_items = torch.from_numpy(items).cuda()
+        dev_items = blocks[name] = torch.from_numpy(items).cuda()
         for algo in gm.EVAL_ALGOS:
             for q in gm.EVAL_QS:
                 n, producer, frac, check = eval_fleet(
@@ -2375,7 +2347,7 @@ def phase_eval(torch, gm, card):
     say("eval", b1_launches=launches,
         producers=",".join(f"{k}={v}" for k, v in sorted(seen.items())),
         phase_s=f"{time.perf_counter() - phase_t0:.1f}", card=card)
-    return launches
+    return launches, blocks
 
 
 # -------------------------------------------------------------- phase 11
@@ -2794,6 +2766,318 @@ def phase_placement(torch, gm, card, dense_period_ms):
     return launches
 
 
+# -------------------------------------------------------------- phase 12
+# E16 in full mode (benchmarks/bench_roofline.py:59-61, 163-183): G = 2^22
+# groups, T = 4096 ticks, 1u / 2u / 2u-window at Q = 1 (1, 2 and 4 state
+# words) and 2u at Q = 3, items the integers 0..999, seed 0.
+E16_G, E16_T, E16_SEED = 2 ** 22, 4096, 0
+E16_ROWS = (("1u", 1), ("2u", 1), ("2u-window", 1), ("2u", 3))
+E16_GATE = 0.35          # E16's GATE_FRACTION_MIN, shown as information
+E16_REPS = 3             # timed launches per row, after the counted one
+E16_B2_ROWS = 512        # the block_t walk of (c)
+E16_SLICE, E16_SLICE_AT = 2 ** 16, 3 * 2 ** 20 + 4099   # the plain slice
+TUNE_REPS = 3            # timed B1 runs per block size in (e), after one
+
+
+@contextlib.contextmanager
+def launch_shapes(into):
+    """Count every B1 launch the entry points (kernels.ops) make on the
+    card into the Counter ``into``, keyed by (kernel family, T, G, Q,
+    block_g)."""
+    from repro_torch.kernels import ops
+
+    real = ops.frugal_program_dense
+
+    def counted(program, items, *args, **kw):
+        if items.device.type == "cuda" and items.shape[0]:
+            into[(program.kernel_family, *items.shape,
+                  kw.get("lanes_per_group", 1), kw["block_g"])] += 1
+        return real(program, items, *args, **kw)
+
+    ops.frugal_program_dense = counted
+    try:
+        yield into
+    finally:
+        ops.frugal_program_dense = real
+
+
+def check_plan(fk, km, fam, t, g, q, block_g):
+    """The model's launch plan against the CUDA library's
+    (dense_launch_info); returns the model's."""
+    plan = km.dense_plan(t, g, q, block_g)
+    info = fk.dense_launch_info(fk.FAMILY_IDS[fam], t, g, q, block_g)
+    got = {k: plan[k] for k in ("lpt", "rows", "cols", "smem_bytes",
+                                "blocks")}
+    want = dict(zip(got, (info["lanes_per_thread"], info["tile_rows"],
+                          info["tile_cols"], info["smem_bytes"],
+                          info["grid_blocks"])))
+    if got != want:
+        fail(f"roofline: the model's plan {got} != dense_launch_info "
+             f"{want} at {fam} [{t}, {g}] Q = {q}, block_g {block_g}")
+    return plan
+
+
+def e16_row(torch, ops, hw, clock_hz, items, fam, q):
+    """One E16 row through frugal_update_auto at the tuned blocks: the
+    counted launch, the timed ones, and (c)'s bits. Returns its kernels
+    line entry."""
+    from repro_torch.core import frugal, program as program_mod
+    from repro_torch.kernels import frugal_update as fk
+    from repro_torch.roofline import autotune_blocks, predict_kernel
+
+    dev = items.device
+    prog = program_mod.family_base(fam)
+    lanes = E16_G * q
+    planes = tuple(torch.full((lanes,), prog.layout.pad_fill(f), device=dev)
+                   for f in prog.layout.plane_fields)
+    quantile = torch.linspace(0.3, 0.9, q, device=dev).repeat(E16_G)
+    bg, bt = autotune_blocks(prog, E16_G, E16_T, q, hw=hw)
+
+    def auto(**kw):
+        return ops.frugal_update_auto(items, planes, quantile, seed=E16_SEED,
+                                      program=prog, lanes_per_group=q, **kw)
+
+    torch.cuda.synchronize()
+    fk.launch_count = 0
+    tuned = auto()
+    torch.cuda.synchronize()
+    launches = fk.launch_count
+    if launches != 1:
+        fail(f"roofline: E16 {fam} Q = {q} made {launches} launches, "
+             "expected one")
+    ms = event_ms(torch, auto, E16_REPS)
+    pred = predict_kernel(E16_G, E16_T, q, prog.layout, block_g=bg,
+                          block_t=bt, hw=hw, sm_clock_hz=clock_hz)
+    measured = E16_T * E16_G / (statistics.median(ms) / 1e3)
+    frac = measured / pred["items_per_s_predicted"]
+    say("roofline", check="b", family=fam, q=q, groups=E16_G, ticks=E16_T,
+        tuned_block_g=bg, tuned_block_t=bt, launches=launches,
+        bytes=int(pred["bytes_total"]),
+        bandwidth_s=f"{pred['bandwidth_s']:.6e}",
+        operations_s=f"{pred['operations_s']:.6e}",
+        operations_bound_by=pred["operations_bound_by"],
+        bound_by=pred["bound_by"], predicted_s=f"{pred['predicted_s']:.6e}",
+        items_per_s_bound=f"{pred['items_per_s_bound']:.4e}",
+        items_per_s_predicted=f"{pred['items_per_s_predicted']:.4e}",
+        smem_bytes=pred["smem_bytes"], blocks=pred["grid"][0],
+        kernel_ms=",".join(f"{v:.4f}" for v in ms),
+        measured_items_per_s=f"{measured:.4e}",
+        fraction_of_roofline=f"{frac:.4f}", e16_gate=E16_GATE,
+        gate="met" if frac >= E16_GATE else "missed (information only)",
+        card_sm_clock_hz=f"{clock_hz:.4e}")
+
+    # (c) the same planes at 256 threads, as block_t-row launches, in the
+    # plain version over the whole block, and in the plain version over a
+    # column slice at its lane offset.
+    if not same_bits(torch, auto(block_g=256), tuned):
+        fail(f"roofline: E16 {fam} Q = {q}: block_g {bg} and 256 differ")
+    with ops.block_override(block_t=E16_B2_ROWS):
+        walk = auto()
+    if not same_bits(torch, walk, tuned):
+        fail(f"roofline: E16 {fam} Q = {q}: {E16_B2_ROWS}-row launches "
+             "differ from one launch")
+    res = {}
+
+    def plain():
+        res["plain"], _ = frugal.program_process_seeded(
+            prog, planes, items, E16_SEED, quantile, lanes_per_group=q)
+
+    plain_ms = event_ms(torch, plain, 1)[0]
+    err = max_abs_err(tuned, res["plain"])
+    if not same_bits(torch, tuned, res["plain"]):
+        fail(f"roofline: E16 {fam} Q = {q}: the kernel differs from the "
+             f"plain version (max abs err {err})")
+    c0, c1 = E16_SLICE_AT * q, (E16_SLICE_AT + E16_SLICE) * q
+    sl = items[:, E16_SLICE_AT:E16_SLICE_AT + E16_SLICE].contiguous()
+    part, _ = frugal.program_process_seeded(
+        prog, tuple(p[c0:c1] for p in planes), sl, E16_SEED,
+        quantile[c0:c1], g_offset=c0, lanes_per_group=q)
+    if not same_bits(torch, part, tuple(p[c0:c1] for p in tuned)):
+        fail(f"roofline: E16 {fam} Q = {q}: the plain version's column "
+             "slice differs")
+    say("roofline", check="c", family=fam, q=q,
+        result=f"block_g {bg} = 256 = {E16_B2_ROWS}-row launches = the "
+               f"plain version ({plain_ms:.1f} ms) = its slice of "
+               f"{E16_SLICE} columns at g_offset {c0}, bit for bit")
+    return kernel_entry(
+        f"frugal_program_dense[E16 {fam} q{q}: [{E16_T}, {E16_G}], "
+        f"block_g {bg}]", KERNEL_SOURCE, TPU_KERNEL, launches, err,
+        statistics.median(ms), plain_ms, pred["bandwidth_s"] * 1e3,
+        pred["operations_s"] * 1e3)
+
+
+def phase_roofline(torch, gm, card, loops, shapes, eval_blocks):
+    """Phase 12; returns (the E16 rows' kernels line entries, B1's
+    launches in their counted runs)."""
+    from repro_torch.configs import platform
+    from repro_torch.core import program as program_mod
+    from repro_torch.kernels import frugal_update as fk
+    from repro_torch.kernels import ops
+    from repro_torch.roofline import (autotune_blocks, detect_hw,
+                                      kernel_bytes_total, predict_kernel)
+    from repro_torch.roofline import kernel_model as km
+
+    phase_t0 = time.perf_counter()
+    # (a) detection
+    kind = torch.cuda.get_device_name(0)
+    plat, dkind, hw = (platform.detect_platform(),
+                       platform.detect_device_kind(), detect_hw())
+    if plat != "gpu" or dkind != kind or hw.name != "gpu-h100":
+        fail(f"roofline: detected platform {plat!r}, kind {dkind!r}, "
+             f"HwSpec {hw.name!r} on {kind!r}")
+    card_hw(torch)
+    _, clock_hz = card_sm_clocks_per_s(torch)
+    say("roofline", check="a", platform=plat, device_kind=dkind, hw=hw.name,
+        sms=hw.cores, hbm_bytes_per_s=f"{hw.hbm_bw:.4e}",
+        max_sm_clock_hz=f"{clock_hz:.4e}",
+        compiled_kernels=platform.supports_compiled_kernels(),
+        note="registry figures are published constants")
+    for fam, sass in sorted(loops.items()):
+        slots = km.issue_slots(km.LANE_TICK_OPS[fam])
+        say("roofline", family=fam, model_issue_slots_per_lane_tick=slots,
+            sass_per_lane_tick_q3=f"{sass:.2f}")
+        if slots > sass:
+            fail(f"roofline: {fam}'s issue-slot table ({slots}) exceeds "
+                 f"this build's {sass:.2f} SASS per lane-tick: no floor")
+
+    # (d) the model against the card at every shape phases 5, 9, 10 and 11
+    # launched, and at E16's.
+    fams = {f: program_mod.family_base(f) for f in fk.FAMILY_IDS}
+    main_shapes = {5: ("2u", CHUNK_T, G_FULL, len(QS), 256),
+                   9: ("2u-decay", SVC_CHUNK_T, SVC_G, 1, 256)}
+    for phase, key in main_shapes.items():
+        if key not in shapes[phase]:
+            fail(f"roofline: phase {phase} launched {dict(shapes[phase])}, "
+                 f"not {key}")
+    bound = {}
+    for phase, counter in sorted(shapes.items()):
+        for (fam, t, g, q, bg), n in sorted(counter.items()):
+            tuned = autotune_blocks(fams[fam], g, t, q, hw=hw)[0]
+            for b in sorted({bg, tuned}):
+                check_plan(fk, km, fam, t, g, q, b)
+            plan = km.dense_plan(t, g, q, bg)
+            pred = predict_kernel(g, t, q, fams[fam].layout, block_g=bg,
+                                  block_t=t, hw=hw, sm_clock_hz=clock_hz)
+            bound[(fam, t, g, q)] = pred["bound_s"] * 1e3
+            say("roofline", check="d", of_phase=phase, family=fam, ticks=t,
+                groups=g, q=q, launches=n, block_g=bg, tuned_block_g=tuned,
+                lpt=plan["lpt"], rows=plan["rows"], cols=plan["cols"],
+                smem_bytes=plan["smem_bytes"], blocks=plan["blocks"],
+                bound_ms_per_launch=f"{bound[(fam, t, g, q)]:.6f}",
+                bound_by=pred["bound_by"], plan="= dense_launch_info")
+            if phase in main_shapes and (fam, t, g, q, bg) == \
+                    main_shapes[phase] and tuned != 256:
+                fail(f"roofline: the tuner picks {tuned} at phase {phase}'s "
+                     "shape, not 256")
+    for fam, q in E16_ROWS:
+        tuned = autotune_blocks(fams[fam], E16_G, E16_T, q, hw=hw)[0]
+        plan = check_plan(fk, km, fam, E16_T, E16_G, q, tuned)
+        say("roofline", check="d", of_phase=12, family=fam, ticks=E16_T,
+            groups=E16_G, q=q, tuned_block_g=tuned, lpt=plan["lpt"],
+            rows=plan["rows"], cols=plan["cols"],
+            smem_bytes=plan["smem_bytes"], blocks=plan["blocks"],
+            plan="= dense_launch_info")
+    # Phase 11's bounds: E15 per host-fed ingest at each placement (its
+    # launches per ingest x the bound of one), the dense cell under
+    # data=2 per chunk period (two [512, 2^22] launches at Q = 3).
+    chunks = gm.E15_T // gm.E15_CHUNK_T
+    for name, (n, g) in {"single": (chunks, gm.E15_G),
+                         "1d_x8": (chunks * 8, gm.E15_G // 8),
+                         "2x4": (chunks * 4, gm.E15_G // 4),
+                         "2x4_loop": (chunks, gm.E15_G)}.items():
+        key = ("2u", gm.E15_CHUNK_T, g, 1)
+        if key not in bound:
+            fail(f"roofline: phase 11 launched no {key}")
+        say("roofline", of_phase=11, e15_placement=name, launches_per_ingest=n,
+            columns_per_launch=g,
+            bound_ms_per_ingest=f"{n * bound[key]:.6f}")
+    say("roofline", of_phase=11, dense_data2="per chunk period, 2 launches",
+        bound_ms=f"{2 * bound[('2u', CHUNK_T, G_FULL, len(QS))]:.6f}")
+
+    # (f) E16's model-consistency check: the analytic bytes at Q = 1 are
+    # at or above the operand floor.
+    for fam in ("1u", "2u", "2u-window"):
+        layout = fams[fam].layout
+        analytic = kernel_bytes_total(E16_G, E16_T, 1, layout, block_t=E16_T)
+        floor = E16_T * E16_G * 4 + 2 * E16_G * layout.num_words * 4
+        if analytic < floor:
+            fail(f"roofline: {fam}: analytic bytes {analytic} below the "
+                 f"operand floor {floor}")
+        say("roofline", check="f", family=fam, analytic_bytes=int(analytic),
+            operand_floor_bytes=floor, model_consistent=True)
+
+    # (c, second half) the six programs at E3's shape: tuned = 256.
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    e3 = eval_blocks["e3_size"]
+    for prog in program_mod.test_instances():
+        planes = random_planes(torch, prog, e3.shape[1], gen, dev)
+        kw = dict(seed=7, program=prog, t_offset=2 ** 31 - 5000)
+        tuned = autotune_blocks(prog, e3.shape[1], e3.shape[0], 1, hw=hw)[0]
+        got = ops.frugal_update_auto(e3, planes, 0.7, **kw)
+        if not same_bits(torch, got, ops.frugal_update_auto(
+                e3, planes, 0.7, block_g=256, **kw)):
+            fail(f"roofline: {prog.family} at E3's shape: block_g {tuned} "
+                 "and 256 differ")
+        say("roofline", check="c", family=prog.family,
+            shape=list(e3.shape), tuned_block_g=tuned,
+            result="bit-identical to block_g 256")
+
+    # (e) B1 alone at the evaluation shapes, at the tuned block size and at
+    # 256, as the fleets launch it (EVAL_CHUNK_T-row launches).
+    for name, block in eval_blocks.items():
+        t_len, g = block.shape
+        for algo in ("1u", "2u"):
+            prog = fams[algo]
+            words = tuple(w.contiguous() for w in prog.layout.pack_planes(
+                random_planes(torch, prog, g, gen, dev)))
+            quantile = torch.full((g,), 0.5, device=dev)
+            tuned = autotune_blocks(prog, g, gm.EVAL_CHUNK_T, 1, hw=hw)[0]
+            res, ms = {}, {}
+            for bg in (tuned, 256):
+                def run(bg=bg):
+                    w = words
+                    for r0 in range(0, t_len, gm.EVAL_CHUNK_T):
+                        w = fk.frugal_program_dense(
+                            prog, block[r0:r0 + gm.EVAL_CHUNK_T], w,
+                            quantile, 3, t_offset=r0, block_g=bg)
+                    res[bg] = w
+                ms[bg] = event_ms(torch, run, TUNE_REPS + 1)[1:]
+            if not same_bits(torch, res[tuned], res[256]):
+                fail(f"roofline: {name} {algo}: block_g {tuned} and 256 "
+                     "differ")
+            faster = min(ms, key=lambda b: statistics.median(ms[b]))
+            say("roofline", check="e", workload=name, algo=algo,
+                shape=[t_len, g], tuned_block_g=tuned,
+                tuned_ms=",".join(f"{v:.4f}" for v in ms[tuned]),
+                b256_ms=",".join(f"{v:.4f}" for v in ms[256]),
+                faster_block_g=faster, card=card)
+
+    # (b) E16: the [4096, 2^22] block made on the card.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    gen.manual_seed(E16_SEED)
+    t0 = time.perf_counter()
+    items = torch.randint(0, 1000, (E16_T, E16_G), dtype=torch.float32,
+                          generator=gen, device=dev)
+    torch.cuda.synchronize()
+    say("roofline", check="b", e16_items=[E16_T, E16_G],
+        bytes=items.numel() * 4, making_s=f"{time.perf_counter() - t0:.3f}",
+        allocated_before_bytes=held,
+        note="integers 0..999 drawn on the card (E16 draws them in numpy)")
+    entries = [e16_row(torch, ops, hw, clock_hz, items, fam, q)
+               for fam, q in E16_ROWS]
+    del items
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    say("roofline", max_memory_allocated_bytes=peak,
+        phase_s=f"{time.perf_counter() - phase_t0:.1f}", card=card)
+    return entries, sum(e["launches"] for e in entries)
+
+
 def main() -> None:
     import torch
 
@@ -2814,15 +3098,26 @@ def main() -> None:
     phase_families(torch)
     phase_scatter(torch, gm)
     phase_golden(torch, gm)
-    launches, dense_period_ms = phase_main_path(torch, card)
+    # B1's launch shapes on the main paths of phases 5, 9, 10 and 11.
+    shapes = collections.defaultdict(collections.Counter)
+    with launch_shapes(shapes[5]):
+        launches, dense_period_ms = phase_main_path(torch, card)
     sparse_launches = phase_sparse_path(torch)
     entries = phase_timing(torch, loops, launches, card)
     entries += phase_scatter_timing(torch, gm, sparse_launches)
     phase_resilience(torch, gm, card)
-    entries.append(phase_service(torch, gm, card))
-    entries[0]["launches"] += phase_eval(torch, gm, card)
-    entries[0]["launches"] += phase_placement(torch, gm, card,
-                                              dense_period_ms)
+    with launch_shapes(shapes[9]):
+        entries.append(phase_service(torch, gm, card))
+    with launch_shapes(shapes[10]):
+        n, eval_blocks = phase_eval(torch, gm, card)
+    entries[0]["launches"] += n
+    with launch_shapes(shapes[11]):
+        entries[0]["launches"] += phase_placement(torch, gm, card,
+                                                  dense_period_ms)
+    e16_entries, n = phase_roofline(torch, gm, card, loops, shapes,
+                                    eval_blocks)
+    entries[0]["launches"] += n
+    entries += e16_entries
     torch.cuda.synchronize()
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("JAX or the JAX package was imported")

@@ -14,10 +14,13 @@ chunks (``data.pipeline``), copy-on-query snapshots and DP-gated tenant
 reads that replay bit for bit.
 
 Entry points run on the CUDA device unless the caller passes
-``device="cpu"`` (``configs.platform.resolve_device``).
+``device="cpu"`` (``configs.platform.resolve_device``). The roofline layer
+(``roofline``) prices the dense kernel on the detected card and chooses
+its block size; ``configs`` and ``models.config`` hold the published model
+configurations it prices.
 """
 
 # The subpackages, entry point first (``from repro_torch import *`` imports
 # them; ``import repro_torch`` alone imports none).
 __all__ = ["api", "service", "serve", "data", "resilience", "train",
-           "core", "kernels", "configs"]
+           "core", "kernels", "roofline", "configs", "models"]

@@ -18,9 +18,16 @@ row loop at T. The sparse path keeps its planes unpacked (its traffic is
 O(K); packing would cost an O(L) pass).
 
 Dispatch is by the tensors' device: CUDA runs the kernel, CPU the plain
-version.
+version. On CUDA tensors ``frugal_update_auto`` takes its block size from
+the roofline autotuner (``roofline.autotune``, priced for the tensors'
+card) unless the caller passes one; ``block_override`` is the test seam
+that forces blocks, or the tuner's blocks for a named HwSpec, on either
+device. The result never depends on the blocks.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 
@@ -74,13 +81,71 @@ def frugal_update_blocked(items, planes, quantile, seed, t_offset=0,
                   block_t)
 
 
+# The block override: the test seam showing that tuned blocks are only
+# another cut of the call. Kernel names are the JAX package's lowerings
+# (Mosaic DMA, grid, Triton); each is B1 here.
+_OVERRIDE_KERNELS = ("dma", "grid", "gpu")
+_BLOCK_OVERRIDE = contextvars.ContextVar("block_override", default=None)
+
+
+@contextlib.contextmanager
+def block_override(block_g=None, block_t=None, *, autotune_hw=None,
+                   kernel: str = "dma"):
+    """Run ``frugal_update_auto`` with explicit blocks — or, when
+    ``autotune_hw`` names an HwSpec (e.g. "gpu-h100"), with the blocks the
+    roofline autotuner picks for that hardware — launched as ``block_t``-row
+    launches of ``block_g`` threads a block on CUDA tensors, and as the
+    plain version in the same ``block_t``-row walk on CPU tensors. A
+    ``block_g`` passed to the call itself still wins. Deterministic, so
+    tests can pin tuned-vs-default equality on the CPU."""
+    if kernel not in _OVERRIDE_KERNELS:
+        raise ValueError(f"kernel must be one of {_OVERRIDE_KERNELS}, got "
+                         f"{kernel!r}")
+    token = _BLOCK_OVERRIDE.set(dict(block_g=block_g, block_t=block_t,
+                                     autotune_hw=autotune_hw))
+    try:
+        yield
+    finally:
+        _BLOCK_OVERRIDE.reset(token)
+
+
+def _auto_blocks(program, shape, device, lanes_per_group, block_g):
+    """(block_g, block_t) of a ``frugal_update_auto`` call over items of
+    ``shape`` [T, G] on ``device``; block_t None is one launch. The tuner
+    gives (DEFAULT_BLOCK_G, T) on hardware the registry cannot price."""
+    # roofline.autotune imports this package: import it at call time
+    from repro_torch.roofline.analysis import detect_hw, hw_for
+    from repro_torch.roofline.autotune import autotune_blocks
+
+    t_len, groups = shape
+    ov = _BLOCK_OVERRIDE.get()
+    if ov is not None:
+        bg = bt = None
+        if ov["autotune_hw"] is not None:
+            bg, bt = autotune_blocks(program, groups, t_len, lanes_per_group,
+                                     hw=hw_for(ov["autotune_hw"]))
+        return (block_g or ov["block_g"] or bg or DEFAULT_BLOCK_G,
+                ov["block_t"] or bt)
+    if block_g is not None or device.type != "cuda":
+        return block_g or DEFAULT_BLOCK_G, None
+    return autotune_blocks(program, groups, t_len, lanes_per_group,
+                           hw=detect_hw(device))[0], None
+
+
 def frugal_update_auto(items, planes, quantile, key=None, *, seed=None,
                        program, t_offset=0, g_offset=0, lanes_per_group=1,
-                       block_g: int = DEFAULT_BLOCK_G):
+                       block_g=None):
     """The dense ingest as one launch over all of ``items``. ``key`` (an
-    int or uint32 key words) or ``seed`` gives the counter seed."""
+    int or uint32 key words) or ``seed`` gives the counter seed.
+
+    ``block_g=None`` takes the block size from the roofline autotuner
+    (cached per family x layout x card x shape) on CUDA tensors; an
+    explicit ``block_g`` is obeyed. Under ``block_override`` the
+    override's blocks apply."""
+    block_g, block_t = _auto_blocks(program, items.shape, items.device,
+                                    lanes_per_group, block_g)
     return _dense(items, planes, quantile, _as_seed(key, seed), t_offset,
-                  g_offset, program, lanes_per_group, block_g, None)
+                  g_offset, program, lanes_per_group, block_g, block_t)
 
 
 def frugal_update_sparse(lanes, items, mask, planes, ticks, quantile, seed,

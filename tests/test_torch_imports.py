@@ -46,7 +46,21 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
               "repro_torch.kernels.ref", "repro_torch.parallel",
               "repro_torch.parallel.topology", "repro_torch.parallel.mesh2d",
               "repro_torch.parallel.group_sharding",
-              "repro_torch.train.elastic"):
+              "repro_torch.train.elastic", "repro_torch.roofline",
+              "repro_torch.roofline.analysis",
+              "repro_torch.roofline.kernel_model",
+              "repro_torch.roofline.autotune", "repro_torch.roofline.report",
+              "repro_torch.configs", "repro_torch.configs.platform",
+              "repro_torch.models", "repro_torch.models.config",
+              "repro_torch.configs.qwen2_vl_2b",
+              "repro_torch.configs.zamba2_2p7b", "repro_torch.configs.yi_6b",
+              "repro_torch.configs.minitron_4b",
+              "repro_torch.configs.gemma2_9b",
+              "repro_torch.configs.granite_20b",
+              "repro_torch.configs.deepseek_v2_lite",
+              "repro_torch.configs.olmoe_1b_7b",
+              "repro_torch.configs.whisper_large_v3",
+              "repro_torch.configs.rwkv6_1p6b"):
         assert m in mods
     code = (
         "import importlib, sys\n"

@@ -9,8 +9,8 @@
   (``ft_host_dense``) against the JAX scan at every tile edge.
 * Card (marker ``cuda``, skipped without a CUDA device): the CUDA kernel
   vs the plain version on the card, every program, three block shapes,
-  Q = 1..5, T at the tile edges, both item producers; and B2's block-shape
-  invariance across block sizes.
+  Q = 1..5, T at the tile edges, both item producers; B2's block-shape
+  invariance across block sizes; and the facade's tuned block size.
 
 Tolerance everywhere: bit-exact (float32 compared as int32 bit patterns).
 JAX is imported inside the tests that use it: the card tests run where JAX
@@ -484,6 +484,33 @@ def test_card_block_g_changes_nothing(prog, g):
     torch.cuda.synchronize()
     for got in runs[1:]:
         assert_bits_equal(got, runs[0], prog.family)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prog", PROGS, ids=IDS)
+def test_card_tuned_blocks_change_nothing(prog):
+    """frugal_update_auto with block_g=None takes the roofline tuner's
+    block size on the card (32 threads at an E3-like width, where 256
+    would leave SMs idle): the same words as at 256, as under a 100-row
+    block_override, and as the plain version."""
+    _need_card()
+    q, t, g = 1, 700, 532
+    x, ps, qv = card_operands(prog, g, q, t, 12)
+    kw = dict(seed=3, program=prog, t_offset=2 ** 31 - 9)
+    assert tops._auto_blocks(prog, (t, g), x.device, q, None) == (32, None)
+    before = tkernel.launch_count
+    tuned = prog.layout.pack_planes(tops.frugal_update_auto(x, ps, qv, **kw))
+    torch.cuda.synchronize()
+    assert tkernel.launch_count - before == 1
+    at_256 = tops.frugal_update_auto(x, ps, qv, block_g=256, **kw)
+    with tops.block_override(block_t=100):
+        walk = tops.frugal_update_auto(x, ps, qv, **kw)
+    plain = tops.frugal_update_auto(x.cpu(), tuple(p.cpu() for p in ps),
+                                    qv.cpu(), **kw)
+    for other, what in ((at_256, "256"), (walk, "100-row launches"),
+                        (plain, "plain version")):
+        assert_bits_equal(prog.layout.pack_planes(other), tuned,
+                          f"{prog.family}: {what}")
 
 
 @pytest.mark.cuda
