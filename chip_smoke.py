@@ -159,7 +159,29 @@ each or more:
      tuned blocks, one launch each: the prediction, measured items/s,
      fraction_of_roofline beside E16's 0.35 gate (information), and (c)
      the planes equal at 256, as 512-row launches, to the plain version
-     over the block and over a 2^16-column slice at its lane offset.
+     over the block and over a 2^16-column slice at its lane offset;
+ 13. the serving engine (repro_torch.serve.ServeEngine, the port of the
+     JAX package's serve/engine.py; its docstring prices 10^6 routes):
+     (a) the golden file's reduced float32 yi-6b (the JAX package's
+     weights) through params_from_numpy and the engine on the card under
+     the golden maker's fake clock: the JAX engine's tokens, its first
+     step logits within 1e-4, its stats_summary() and SLO state bit for
+     bit; (b) yi-6b at full width (launch/serve.py's default arch: 32
+     layers, d_model 4096, 32/4 GQA heads, d_ff 11008, vocab 64000,
+     float32 parameters from a seeded torch generator, bf16 activations),
+     ServeEngine(batch_slots=4, max_len=512) with 10^6 routes registered
+     (3 x 2^20 SLO lanes, so every flush is one run kernel launch), 16
+     requests from numpy seed 0 (prompts of 8-32 tokens, 16-32 new
+     tokens, Zipf(1.2) routes): every request served with its token
+     count, one B3 launch per engine step, the SLO planes and clocks
+     bit-identical to a CPU SLOFleet replaying the engine's observations
+     and flushes, the decode path's logits within 3e-2 x max|logit| of
+     forward(..., last_only=True) over one request's tokens; ms per step
+     (CUDA events around the decode call, the engine's host clock),
+     decode tokens/s, TTFT p50/p99, B3 per flush, peak device memory, the
+     step's bound (float32 weights and the KV cache read once at the
+     gpu-h100 HwSpec's 3.35 TB/s) and its share, and a torch.profiler
+     trace of 8 steps of a second engine (busy share, top device ops).
 
 frugal_update_auto launches B1 at the roofline autotuner's block size
 (repro_torch.roofline.autotune: 256 at the shapes of phases 5 and 9,
@@ -171,6 +193,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import importlib.util
 import itertools
 import json
@@ -3078,6 +3101,405 @@ def phase_roofline(torch, gm, card, loops, shapes, eval_blocks):
     return entries, sum(e["launches"] for e in entries)
 
 
+# --------------------------------------------------------------- phase 13
+SERVE_SEED = 0           # numpy seed of the traffic, torch seed of weights
+SERVE_SLOTS, SERVE_MAX_LEN = 4, 512
+SERVE_ROUTES = 10 ** 6
+SERVE_REQUESTS = 16
+SERVE_TRACE_STEPS = 8
+# Decode path against forward at full width, bf16 activations through 32
+# layers: |difference| at most this times max |logit|.
+SERVE_FORWARD_TOL = 3e-2
+SERVE_GOLDEN_LOGIT_TOL = 1e-4
+
+
+def serve_golden(torch, gm):
+    """(a) The golden file's reduced yi-6b (the JAX package's weights,
+    stored) through params_from_numpy and the port's engine on the card,
+    under the golden maker's fake clock: the JAX engine's tokens, first
+    step logits within SERVE_GOLDEN_LOGIT_TOL, summary and SLO state bit
+    for bit."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import params_from_numpy
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import engine as engine_mod
+
+    data = np.load(GOLDEN)
+    cfg = gm.serve_config(reduce_for_smoke(get_config(gm.SERVE_ARCH)))
+    model = params_from_numpy(cfg, gm.unflatten_params(data),
+                              device="cuda")
+    real_time = engine_mod.time
+    engine_mod.time = gm.FakeClock()
+    try:
+        eng = ServeEngine(model, batch_slots=gm.SERVE_SLOTS,
+                          max_len=gm.SERVE_MAX_LEN)
+        if eng.device.type != "cuda" or eng.slo.device.type != "cuda":
+            fail(f"serving (a): the engine runs on {eng.device}")
+        got = gm.serve_engine_results(eng, Request)
+    finally:
+        engine_mod.time = real_time
+    for key in ("serve/outputs", "serve/output_lengths"):
+        if not np.array_equal(got[key], data[key]):
+            fail(f"serving (a): {key} {got[key].tolist()} != the JAX "
+                 f"engine's {data[key].tolist()}")
+    err = float(np.abs(got["serve/first_step_logits"]
+                       - data["serve/first_step_logits"]).max())
+    if not err <= SERVE_GOLDEN_LOGIT_TOL:
+        fail(f"serving (a): first step logits differ by {err}")
+    for key in ("serve/summary", "serve/slo/m", "serve/slo/step",
+                "serve/slo/sign", "serve/slo/ticks"):
+        if not np.array_equal(got[key].view(np.int32),
+                              data[key].view(np.int32)):
+            fail(f"serving (a): {key} differs from the JAX engine's")
+    say("serve", check="a", arch=f"{gm.SERVE_ARCH} reduced "
+        f"(d_model {cfg.d_model}, {cfg.num_layers} layers, float32)",
+        requests=len(data["serve/prompt_lengths"]),
+        tokens=int(data["serve/output_lengths"].sum()),
+        tokens_equal=True, first_step_logits_max_abs_err=f"{err:.3e}",
+        summary_and_slo_state="bit-identical to the JAX engine's")
+
+
+def serve_traffic(rng, vocab, names):
+    """SERVE_REQUESTS requests: prompts of 8-32 tokens, 16-32 new tokens,
+    routes Zipf(1.2) over ``names``."""
+    from repro_torch.serve import Request
+
+    out = []
+    for rid in range(SERVE_REQUESTS):
+        n = int(rng.integers(8, 33))
+        out.append(Request(rid=rid, prompt=rng.integers(0, vocab, n).tolist(),
+                           max_new_tokens=int(rng.integers(16, 33)),
+                           route=names[int((rng.zipf(ZIPF_A) - 1)
+                                           % len(names))]))
+    return out
+
+
+def instrument_engine(torch, eng):
+    """Record, on ``eng``, the SLO observations and flush boundaries
+    (``observed``, ``flush_at``), CUDA events around each step decode call
+    (``decode_events``) and around each flush (``flush_events``) with the
+    flush's host ms (``flush_host_ms``), the host ms of each prefill call
+    (``prefill_host_ms``: its dispatch, no sync) and the engine's own
+    per-token dispatch ms (``dispatch_ms``)."""
+    eng.observed, eng.flush_at, eng.decode_events = [], [], []
+    eng.flush_events, eng.flush_host_ms, eng.dispatch_ms = [], [], []
+    eng.prefill_host_ms = []
+    observe, flush = eng.slo.observe, eng.slo.flush
+    decode, admit = eng._decode, eng._admit
+    state = {"admitting": False}
+
+    def observe_recorded(route, metric, value):
+        eng.observed.append((route, metric, value))
+        if metric == "tok_q50_ms":
+            eng.dispatch_ms.append(value)
+        observe(route, metric, value)
+
+    def flush_timed():
+        if eng.slo._pending:
+            eng.flush_at.append(len(eng.observed))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        flush()
+        b.record()
+        eng.flush_host_ms.append((time.perf_counter() - t0) * 1e3)
+        eng.flush_events.append((a, b))
+
+    def admit_marked():
+        state["admitting"] = True
+        try:
+            admit()
+        finally:
+            state["admitting"] = False
+
+    def decode_timed(*args):
+        if state["admitting"]:
+            t0 = time.perf_counter()
+            out = decode(*args)
+            eng.prefill_host_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = decode(*args)
+        b.record()
+        eng.decode_events.append((a, b))
+        return out
+
+    eng.slo.observe, eng.slo.flush = observe_recorded, flush_timed
+    eng._decode, eng._admit = decode_timed, admit_marked
+    return eng
+
+
+def serve_replay_on_cpu(torch, eng, names):
+    """A CPU SLOFleet of the engine's seed and capacity, fed the engine's
+    recorded observations with its flush boundaries: every plane and
+    clock bit-identical to the card's fleet."""
+    from repro_torch.serve import SLOFleet
+
+    plain = SLOFleet(seed=0, capacity=64, device="cpu")
+    plain.ensure_routes(names)
+    start = 0
+    for end in eng.flush_at:
+        for route, metric, value in eng.observed[start:end]:
+            plain.observe(route, metric, value)
+        plain.flush()
+        start = end
+    if start != len(eng.observed):
+        fail("serving (b): observations after the last flush")
+    if plain._cap_routes != eng.slo._cap_routes:
+        fail("serving (b): the replay's capacity differs")
+    for name in ("_m", "_step", "_sign", "_ticks"):
+        if not torch.equal(getattr(eng.slo, name).cpu(),
+                           getattr(plain, name)):
+            fail(f"serving (b): SLO {name} differs from the CPU replay")
+    return plain
+
+
+def serve_forward_check(torch, model, req):
+    """The decode path (a fresh batch-1 cache fed the request's tokens one
+    by one) against forward(..., last_only=True) over the same tokens, at
+    the last position."""
+    seq = req.prompt + req.output[:-1]
+    toks = torch.tensor([seq], dtype=torch.int32, device="cuda")
+    cache = model.init_cache(1, SERVE_MAX_LEN)
+    for p in range(len(seq)):
+        dec, cache = model.decode_step(toks[:, p:p + 1], cache, p)
+    with torch.no_grad():
+        fwd, _ = model(toks, last_only=True)
+    scale = float(fwd.abs().max())
+    err = float((dec - fwd).abs().max())
+    if not err <= SERVE_FORWARD_TOL * scale:
+        fail(f"serving (b): the decode path's logits differ from forward's "
+             f"by {err} (max |logit| {scale})")
+    same_top = int(dec[0, 0].argmax()) == int(fwd[0, 0].argmax())
+    return len(seq), err, scale, same_top
+
+
+def serve_trace(torch, model, names, rng, card):
+    """A second engine of the same shape (10^6 routes registered): its
+    admission step (SERVE_SLOTS prompts of 16 tokens prefilled, one decode
+    call each, then one step's decode) traced, then SERVE_TRACE_STEPS
+    decode-only steps traced."""
+    from repro_torch.serve import Request, ServeEngine
+
+    eng = ServeEngine(model, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+    eng.slo.ensure_routes(names)
+    prompt = 16
+    for rid in range(SERVE_SLOTS):
+        eng.submit(Request(rid=rid, prompt=rng.integers(
+            0, model.cfg.vocab_size, prompt).tolist(),
+            max_new_tokens=SERVE_TRACE_STEPS + 4, route=names[rid]))
+    torch.cuda.synchronize()
+
+    def admission():
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    calls = SERVE_SLOTS * prompt + 1
+    adm_ms, adm_names, adm_busy = device_trace(torch, admission)
+    if adm_names is not None:
+        say("serve", check="trace", of="admission step", decode_calls=calls,
+            window_ms=f"{adm_ms:.3f}", ms_per_call=f"{adm_ms / calls:.4f}",
+            device_busy_ms_per_call=f"{adm_busy / calls:.4f}",
+            device_busy_share=f"{adm_busy / adm_ms:.4f}", card=card)
+        for name, (n, ms) in sorted(adm_names.items(),
+                                    key=lambda kv: -kv[1][1])[:4]:
+            say("serve", check="trace", of="admission step",
+                activity=name[:90], calls=n,
+                ms_per_call=f"{ms / calls:.4f}")
+    eng.step()
+    torch.cuda.synchronize()
+
+    def window():
+        t0 = time.perf_counter()
+        for _ in range(SERVE_TRACE_STEPS):
+            if eng.step() != SERVE_SLOTS:
+                fail("serving (trace): a slot finished inside the window")
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    window_ms, names_ms, busy_ms = device_trace(torch, window)
+    if names_ms is None:
+        say("serve", check="trace", steps=SERVE_TRACE_STEPS,
+            window_ms=f"{window_ms:.3f}", device_busy_share="null",
+            note="no device trace: not measured", card=card)
+        return None
+    b3_ms = sum(ms for n, (_, ms) in names_ms.items()
+                if "frugal_scatter" in n)
+    say("serve", check="trace", steps=SERVE_TRACE_STEPS,
+        window_ms=f"{window_ms:.3f}", device_busy_ms=f"{busy_ms:.3f}",
+        device_busy_share=f"{busy_ms / window_ms:.4f}",
+        b3_ms_per_flush=f"{b3_ms / SERVE_TRACE_STEPS:.5f}",
+        note="torch.profiler, CUDA activity only; each step one decode "
+             "call and one SLO flush", card=card)
+    for name, (calls, ms) in sorted(names_ms.items(),
+                                    key=lambda kv: -kv[1][1])[:8]:
+        say("serve", check="trace", activity=name[:90], calls=calls,
+            ms_per_step=f"{ms / SERVE_TRACE_STEPS:.4f}",
+            share=f"{ms / window_ms:.4f}")
+    return b3_ms / SERVE_TRACE_STEPS
+
+
+def phase_serving(torch, gm, card):
+    """Phase 13: (a) the golden engine; (b) yi-6b at full width with
+    random weights from a seeded generator, fed SERVE_REQUESTS requests
+    over 10^6 registered routes. Returns the run kernel's launches on the
+    main path (one per flush)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import frugal_update as fk
+    from repro_torch.models import build_model
+    from repro_torch.roofline import hw_for
+    from repro_torch.serve import SLOFleet, ServeEngine
+
+    phase_t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        fail("serving: TF32 matmuls are on; the float32 golden check "
+             "needs them off")
+    serve_golden(torch, gm)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("yi-6b")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SERVE_SEED)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    if (len(model.layers), cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.d_ff, cfg.vocab_size) != (32, 4096, 32, 4, 11008, 64000) \
+            or next(model.parameters()).dtype != torch.float32:
+        fail("serving (b): the model is not yi-6b at full width in float32")
+    eng = ServeEngine(model, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+    names = [f"route-{i}" for i in range(SERVE_ROUTES)]
+    t0 = time.perf_counter()
+    eng.slo.ensure_routes(names)
+    torch.cuda.synchronize()
+    register_s = time.perf_counter() - t0
+    lanes = eng.slo._cap_routes * eng.slo.n_metrics
+    if lanes <= SLOFleet.DENSE_LANES_MAX:
+        fail(f"serving (b): {lanes} lanes take the dense flush branch")
+    cache_bytes = sum(c.numel() * c.element_size()
+                      for layer in eng.caches for c in layer.values())
+    say("serve", check="b", arch="yi-6b", layers=len(model.layers),
+        d_model=cfg.d_model, heads=f"{cfg.num_heads}/{cfg.num_kv_heads}",
+        d_ff=cfg.d_ff, vocab=cfg.vocab_size, params=n_params,
+        param_bytes=param_bytes, param_dtype="float32",
+        activations=cfg.dtype, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+        kv_cache_bytes=cache_bytes, build_s=f"{build_s:.3f}",
+        routes=SERVE_ROUTES, slo_lanes=lanes,
+        register_routes_s=f"{register_s:.3f}")
+
+    rng = np.random.default_rng(SERVE_SEED)
+    reqs = serve_traffic(rng, cfg.vocab_size, names)
+    instrument_engine(torch, eng)
+    step_host_ms, admitted = [], []
+    gc_ms = collections.Counter()
+    gc_t0 = {}
+
+    def gc_timer(phase, info):
+        if phase == "start":
+            gc_t0["t"] = time.perf_counter()
+        else:
+            gc_ms[info["generation"]] += (time.perf_counter()
+                                          - gc_t0.pop("t")) * 1e3
+
+    gc.callbacks.append(gc_timer)
+    fk.scatter_launch_count = 0
+    t_run = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        queued = len(eng.queue)
+        t0 = time.perf_counter()
+        eng.step()
+        step_host_ms.append((time.perf_counter() - t0) * 1e3)
+        admitted.append(len(eng.queue) != queued)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = fk.scatter_launch_count
+    gc.callbacks.remove(gc_timer)
+    peak = torch.cuda.max_memory_allocated()
+
+    done = sorted(eng.done, key=lambda r: r.rid)
+    if [r.rid for r in done] != list(range(SERVE_REQUESTS)):
+        fail(f"serving (b): served {[r.rid for r in done]}")
+    for r in done:
+        if len(r.output) != r.max_new_tokens or not all(
+                0 <= t < cfg.vocab_size for t in r.output):
+            fail(f"serving (b): request {r.rid} got {len(r.output)} tokens "
+                 f"of {r.max_new_tokens}")
+    flushes = len(eng.flush_at)
+    if launches == 0 or launches != flushes \
+            or flushes != len(step_host_ms):
+        fail(f"serving (b): {launches} run kernel launches for {flushes} "
+             f"flushes with events in {len(step_host_ms)} steps")
+    serve_replay_on_cpu(torch, eng, names)
+    n_seq, err, scale, same_top = serve_forward_check(torch, model, done[0])
+
+    decode_ms = [a.elapsed_time(b) for a, b in eng.decode_events]
+    flush_ms = [a.elapsed_time(b) for a, b in eng.flush_events]
+    pure = [ms for ms, adm in zip(step_host_ms, admitted) if not adm]
+    ttft = [(r.t_first - r.t_submit) * 1e3 for r in done]
+    tokens = sum(len(r.output) for r in done)
+    hw = hw_for("gpu-h100")
+    bound_ms = (param_bytes + cache_bytes) / hw.hbm_bw * 1e3
+    step_ms = statistics.median(decode_ms)
+    say("serve", check="b", served=len(done), tokens=tokens,
+        prompt_tokens=sum(len(r.prompt) for r in done), steps=len(
+            step_host_ms), steps_with_admission=sum(admitted),
+        run_s=f"{run_s:.3f}", decode_tokens_per_s=f"{tokens / run_s:.2f}",
+        ttft_ms_p50=f"{pct(ttft, 50):.2f}", ttft_ms_p99=f"{pct(ttft, 99):.2f}",
+        card=card)
+    say("serve", check="b", step_decode_ms_device_median=f"{step_ms:.4f}",
+        step_decode_ms_device_p10_p90=f"{pct(decode_ms, 10):.4f},"
+        f"{pct(decode_ms, 90):.4f}",
+        engine_dt_ms_median=f"{statistics.median(eng.dispatch_ms):.4f}",
+        step_host_ms_median_no_admission=f"{statistics.median(pure):.4f}",
+        prefill_call_host_ms_p10_p50_p90=",".join(
+            f"{pct(eng.prefill_host_ms, q):.4f}" for q in (10, 50, 90)),
+        prefill_calls=len(eng.prefill_host_ms),
+        gc_ms_by_generation=json.dumps(dict(sorted(gc_ms.items()))),
+        note="device: CUDA events around the step's decode call; engine "
+             "dt_ms: the engine's host clock (dispatch, no sync); host: "
+             "perf_counter around eng.step() (decode, logits copy, flush)")
+    say("serve", check="b", step_bytes=param_bytes + cache_bytes,
+        step_bound_ms=f"{bound_ms:.4f}",
+        step_bound_share=f"{bound_ms / step_ms:.4f}",
+        bound_note=f"float32 weights + KV cache read once over the "
+                   f"gpu-h100 HwSpec's {hw.hbm_bw / 1e12:.2f} TB/s",
+        max_memory_allocated_bytes=peak, card=card)
+    say("serve", check="b", b3_launches=launches, flushes=flushes,
+        flush_device_ms_median=f"{statistics.median(flush_ms):.4f}",
+        flush_host_ms_median=f"{statistics.median(eng.flush_host_ms):.4f}",
+        slo_state="all planes and clocks bit-identical to a CPU SLOFleet "
+                  "replaying the engine's observations and flushes",
+        note="flush device ms: CUDA events around SLOFleet.flush (event "
+             "copies and one B3 launch)")
+    say("serve", check="b", forward_vs_decode_tokens=n_seq,
+        max_abs_err=f"{err:.4e}", max_abs_logit=f"{scale:.4f}",
+        tolerance=f"{SERVE_FORWARD_TOL} x max|logit|",
+        same_argmax=same_top)
+    b3_trace_ms = serve_trace(torch, model, names, rng, card)
+    del eng, model
+    torch.cuda.empty_cache()
+    say("serve", phase_s=f"{time.perf_counter() - phase_t0:.1f}",
+        b3_ms_per_flush_traced="null" if b3_trace_ms is None
+        else f"{b3_trace_ms:.5f}", card=card)
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -3118,6 +3540,9 @@ def main() -> None:
                                     eval_blocks)
     entries[0]["launches"] += n
     entries += e16_entries
+    flush_entry = next(e for e in entries
+                       if e["name"].startswith("frugal_program_scatter[SLO"))
+    flush_entry["launches"] += phase_serving(torch, gm, card)
     torch.cuda.synchronize()
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("JAX or the JAX package was imported")

@@ -17,10 +17,12 @@ Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (``configs.platform.resolve_device``). The roofline layer
 (``roofline``) prices the dense kernel on the detected card and chooses
 its block size; ``configs`` and ``models.config`` hold the published model
-configurations it prices.
+configurations it prices. ``models`` runs the attention-only decoders of
+the model zoo, which ``serve.ServeEngine`` serves (``launch.serve`` is its
+driver), with each route's SLO quantiles in an ``SLOFleet``.
 """
 
 # The subpackages, entry point first (``from repro_torch import *`` imports
 # them; ``import repro_torch`` alone imports none).
 __all__ = ["api", "service", "serve", "data", "resilience", "train",
-           "core", "kernels", "roofline", "configs", "models"]
+           "core", "kernels", "roofline", "configs", "models", "launch"]

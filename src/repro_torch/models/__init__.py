@@ -1,5 +1,14 @@
-"""Model configurations (``config.py``): the JAX package's ``ModelConfig``,
-which the roofline layer prices. The model zoo itself is not ported."""
-from .config import ModelConfig
+"""The model zoo's attention-only decoders (yi-6b, gemma2-9b, granite-20b,
+minitron-4b, qwen2-vl-2b's text path) and the configurations of all ten
+architectures (``config.py``), which the roofline layer prices.
 
-__all__ = ["ModelConfig"]
+``build_model(cfg, device=, generator=)`` makes a ``CausalLM`` with fresh
+parameters; ``params_from_numpy(cfg, tree)`` carries the JAX package's
+parameters across. MLA and MoE, mamba2, rwkv6 and the encoder-decoder are
+not ported yet (ROADMAP A item 6)."""
+from .causal_lm import CausalLM
+from .config import ModelConfig
+from .convert import params_from_numpy
+from .model import build_model
+
+__all__ = ["ModelConfig", "build_model", "CausalLM", "params_from_numpy"]

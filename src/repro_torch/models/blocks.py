@@ -1,0 +1,192 @@
+"""Block composition: layer kinds -> residual blocks -> the decoder stack
+(port of the JAX package's ``models/blocks.py``).
+
+The JAX package runs a stage's units under ``lax.scan`` over parameters
+stacked on a leading axis; the port holds one module per layer
+(``causal_lm.CausalLM``) and runs them in a Python loop, in the scan's
+order. ``stage_unit_kinds`` is ported whole, so every config names its
+stack; the block functions cover the attention kinds (``attn``,
+``attn_local``, ``attn_global``). Every other kind raises
+NotImplementedError: MLA and MoE, mamba2, rwkv6 and the encoder-decoder
+kinds are ROADMAP A item 6.
+
+Per-block telemetry (``_stats``: activation absmax and rms) is returned
+beside the activations, as the JAX package returns it from the scan.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import torch
+from torch import nn
+
+from .layers import attention as attn_lib
+from .layers.mlp import mlp, mlp_init
+from .layers.norm import apply_norm, norm_init
+
+ATTENTION_KINDS = ("attn", "attn_local", "attn_global")
+
+
+def _check_kind(kind: str):
+    if kind not in ATTENTION_KINDS:
+        raise NotImplementedError(
+            f"layer kind {kind!r} is not ported yet: the port's model zoo "
+            f"holds the attention-only decoders ({', '.join(ATTENTION_KINDS)})"
+            "; MLA and MoE, mamba2, rwkv6 and the encoder-decoder kinds are "
+            "ROADMAP A item 6")
+
+
+# --------------------------------------------------------------------- kinds
+def kind_window(cfg, kind: str) -> int:
+    if kind == "attn_local":
+        return cfg.window_pattern[0] if cfg.window_pattern else 4096
+    return 0
+
+
+def block_init(gen, cfg, kind: str, dtype=torch.float32,
+               device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """One residual block's parameters (the JAX package's tree and
+    scales; the values come from ``gen``)."""
+    _check_kind(kind)
+    p = {"norm1": norm_init(cfg, cfg.d_model, dtype, device),
+         "attn": attn_lib.attention_init(gen, cfg, dtype, device),
+         "norm2": norm_init(cfg, cfg.d_model, dtype, device),
+         "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype,
+                         device)}
+    if cfg.post_norms:
+        p["post_norm1"] = norm_init(cfg, cfg.d_model, dtype, device)
+        p["post_norm2"] = norm_init(cfg, cfg.d_model, dtype, device)
+    return p
+
+
+def _stats(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    xf = x.float()
+    return {"absmax": xf.abs().max(), "rms": xf.square().mean().sqrt()}
+
+
+def _residual_mlp(params, x, cfg):
+    h = apply_norm(cfg, params["norm2"], x)
+    m = mlp(params["mlp"], h, cfg.act, cfg.gated_mlp)
+    if cfg.post_norms:
+        m = apply_norm(cfg, params["post_norm2"], m)
+    return x + m
+
+
+def block_apply(params, x: torch.Tensor, cfg, kind: str, cos=None,
+                sin=None, q_offset: int = 0
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence residual block."""
+    _check_kind(kind)
+    h = apply_norm(cfg, params["norm1"], x)
+    a = attn_lib.attention(params["attn"], h, cfg, cos, sin,
+                           window=kind_window(cfg, kind), q_offset=q_offset,
+                           chunk=cfg.attn_chunk)
+    if cfg.post_norms:
+        a = apply_norm(cfg, params["post_norm1"], a)
+    x = _residual_mlp(params, x + a, cfg)
+    return x, _stats(x)
+
+
+# ------------------------------------------------------------- decode blocks
+def block_cache_init(cfg, kind: str, batch: int, max_len: int, dtype,
+                     device=None) -> Dict[str, torch.Tensor]:
+    _check_kind(kind)
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def block_decode(params, x: torch.Tensor, cache, pos: int, cfg, kind: str,
+                 cos=None, sin=None):
+    """One-token decode through a residual block; the cache is updated in
+    place and returned."""
+    _check_kind(kind)
+    h = apply_norm(cfg, params["norm1"], x)
+    a, ck, cv = attn_lib.attention_decode(
+        params["attn"], h, cache["k"], cache["v"], pos, cfg, cos, sin,
+        window=kind_window(cfg, kind), chunk=cfg.decode_chunk)
+    cache = dict(cache, k=ck, v=cv)
+    if cfg.post_norms:
+        a = apply_norm(cfg, params["post_norm1"], a)
+    x = _residual_mlp(params, x + a, cfg)
+    return x, cache, _stats(x)
+
+
+# ------------------------------------------------------------------ modules
+class Params(nn.Module):
+    """A parameter tree keyed as the JAX package's pytree: each tensor
+    leaf becomes a Parameter, each dict a child ``Params``; ``p["wq"]``
+    reads a leaf or a child, so the layer functions take a module or a
+    plain dict of tensors alike."""
+
+    def __init__(self, tree: Mapping):
+        super().__init__()
+        for name, v in tree.items():
+            if isinstance(v, Mapping):
+                self.add_module(name, Params(v))
+            else:
+                self.register_parameter(name, nn.Parameter(v))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+class Block(Params):
+    """One residual block of ``kind``: the port's counterpart of one unit
+    slice of the JAX package's stacked parameters."""
+
+    def __init__(self, cfg, kind: str, tree: Mapping):
+        _check_kind(kind)
+        super().__init__(tree)
+        self.cfg, self.kind = cfg, kind
+
+    def forward(self, x, cos=None, sin=None, q_offset: int = 0):
+        return block_apply(self, x, self.cfg, self.kind, cos, sin, q_offset)
+
+    def decode(self, x, cache, pos: int, cos=None, sin=None):
+        return block_decode(self, x, cache, pos, self.cfg, self.kind, cos,
+                            sin)
+
+
+# ------------------------------------------------------------------- stages
+def stage_unit_kinds(cfg) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
+    """Returns (prefix_kinds, n_units, unit_kinds) for the decoder stack:
+    unstacked leading layers (deepseek's first dense layer), then n_units
+    repetitions of unit_kinds."""
+    if cfg.layer_pattern:                       # hybrid (zamba2)
+        unit = tuple(cfg.layer_pattern)
+        if cfg.num_layers % len(unit):
+            raise ValueError(f"{cfg.num_layers} layers do not tile {unit}")
+        return (), cfg.num_layers // len(unit), unit
+    if cfg.family == "ssm":
+        return (), cfg.num_layers, ("rwkv",)
+    if cfg.moe_experts:
+        attn_kind = "mla_moe" if cfg.use_mla else "moe"
+        prefix = ("mla",) * cfg.moe_first_dense if cfg.use_mla \
+            else ("attn",) * cfg.moe_first_dense
+        return prefix, cfg.num_layers - cfg.moe_first_dense, (attn_kind,)
+    if cfg.window_pattern:                      # gemma2 local/global
+        unit = tuple("attn_local" if w else "attn_global"
+                     for w in cfg.window_pattern)
+        if cfg.num_layers % len(unit):
+            raise ValueError(f"{cfg.num_layers} layers do not tile {unit}")
+        return (), cfg.num_layers // len(unit), unit
+    return (), cfg.num_layers, ("attn",)
+
+
+def layer_kinds(cfg) -> Tuple[str, ...]:
+    """Every layer's kind in the order the JAX package runs them: the
+    prefix, then unit by unit."""
+    prefix, n_units, unit = stage_unit_kinds(cfg)
+    return tuple(prefix) + tuple(unit) * n_units
+
+
+def stack_stats(stats, unit_kinds) -> list:
+    """Per-layer stats of the stacked layers -> the JAX scan's layout: one
+    dict per unit kind, each statistic stacked over the units."""
+    n = len(unit_kinds)
+    return [{k: torch.stack([st[k] for st in stats[j::n]])
+             for k in stats[j]} for j in range(n)]

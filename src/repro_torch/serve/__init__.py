@@ -1,6 +1,7 @@
-"""repro_torch.serve — per-route serving SLO quantiles (the port of the JAX
-package's ``serve/slo.py``; the LLM engine of ``serve/engine.py`` belongs
-to the training scaffold and is not ported yet)."""
+"""repro_torch.serve — the batched LLM serving engine (``engine.py``) and
+its per-route serving SLO quantiles (``slo.py``), ports of the JAX
+package's ``serve/``."""
+from .engine import Request, ServeEngine
 from .slo import DEFAULT_METRICS, SLOFleet
 
-__all__ = ["SLOFleet", "DEFAULT_METRICS"]
+__all__ = ["ServeEngine", "Request", "SLOFleet", "DEFAULT_METRICS"]

@@ -84,7 +84,23 @@ end). Six programs (``test_instances``) at G = 1000, q50/q90, T = 700
 TopologySpec(data=3, lanes=2): each one's replica planes and merged
 planes in full.
 
+The serving engine (keys ``serve/*``): a reduced float32 yi-6b
+(``serve_config``: ``reduce_for_smoke`` narrowed to d_model 64, 4 heads
+over 2 kv heads of 16, d_ff 128, vocab 256; 2 layers) with the JAX
+package's parameters from ``jax.random.PRNGKey(0)``, stored leaf by leaf
+(``serve/params/<path>``, about 0.4 MB: another numpy may not remake
+them), served by the JAX package's ``ServeEngine`` (2 slots, max_len 32,
+greedy) under a fake clock (``FakeClock``, read where the engine reads
+``time.time``) for the requests of ``serve_requests`` (numpy seed 20, one
+prompt longer than max_len). The file holds the prompts, the greedy
+outputs, the logits of the first engine step's decode call, the
+``stats_summary()`` and the SLO fleet's planes and clocks.
+
     PYTHONPATH=src python tests/make_torch_port_golden.py
+    PYTHONPATH=src python tests/make_torch_port_golden.py --only-serving
+
+``--only-serving`` rewrites the ``serve/*`` keys and keeps every other key
+of the file as it is.
 """
 import os
 import shutil
@@ -128,6 +144,11 @@ E15_G, E15_T, E15_CHUNK_T, E15_SEED = 2 ** 20, 512, 64, 0
 E15_GROW = 2 ** 20 + 2 ** 16
 SIX_G, SIX_QS, SIX_T, SIX_CHUNK_T, SIX_SEED = 1000, (0.5, 0.9), 700, 64, 11
 SIX_DATA, SIX_LANES = 3, 2
+SERVE_ARCH, SERVE_SLOTS, SERVE_MAX_LEN, SERVE_SEED = "yi-6b", 2, 32, 20
+SERVE_WIDTHS = dict(d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+                    d_ff=128, vocab_size=256)
+SERVE_ROUTES = ("api", "batch", "chat")
+SERVE_REQUESTS, SERVE_LONG_PROMPT = 6, 40
 
 
 def random_planes(rng, prog, lanes):
@@ -674,6 +695,161 @@ def golden_placement():
     return out
 
 
+class FakeClock:
+    """A stand-in for the ``time`` module of a serving engine: ``time()``
+    starts at 1000 s and advances 1-5 ms per read, the same sequence for
+    every engine, so two engines that read the clock at the same call
+    sites see the same times."""
+
+    def __init__(self):
+        self.reads = 0
+
+    def time(self) -> float:
+        t = 1000.0 + 0.003 * self.reads + 0.001 * (self.reads % 5)
+        self.reads += 1
+        return t
+
+
+def serve_config(cfg):
+    """The golden engine's config from the package's ``yi-6b`` config
+    (either package's ``reduce_for_smoke`` result)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, **SERVE_WIDTHS)
+
+
+def serve_requests():
+    """[(prompt, max_new_tokens, route)] of the golden engine: prompts of
+    2-8 tokens from numpy seed SERVE_SEED, one of SERVE_LONG_PROMPT tokens
+    (past max_len, so the cache write clamps)."""
+    rng = np.random.default_rng(SERVE_SEED)
+    out = []
+    for i in range(SERVE_REQUESTS):
+        n = SERVE_LONG_PROMPT if i == 3 else int(rng.integers(2, 9))
+        out.append((rng.integers(0, SERVE_WIDTHS["vocab_size"],
+                                 n).tolist(),
+                    int(rng.integers(3, 7)),
+                    SERVE_ROUTES[i % len(SERVE_ROUTES)]))
+    return out
+
+
+def capture_step_logits(eng):
+    """Record, in ``eng.step_logits``, the float32 logits of every decode
+    call that ``eng.step`` makes (prefill calls from ``_admit`` are not
+    recorded). Works on either package's engine."""
+    eng.step_logits = []
+    decode, admit = eng._decode, eng._admit
+    state = {"admitting": False}
+
+    def admit_marked():
+        state["admitting"] = True
+        try:
+            admit()
+        finally:
+            state["admitting"] = False
+
+    def decode_recorded(*args):
+        logits, caches = decode(*args)
+        if not state["admitting"]:
+            eng.step_logits.append(logits)
+        return logits, caches
+
+    eng._admit, eng._decode = admit_marked, decode_recorded
+    return eng
+
+
+def serve_engine_results(eng, request_cls):
+    """Submit ``serve_requests`` to ``eng``, run it until drained and
+    return {outputs, step0 logits, summary, planes} as golden arrays."""
+    capture_step_logits(eng)
+    for rid, (prompt, max_new, route) in enumerate(serve_requests()):
+        eng.submit(request_cls(rid=rid, prompt=prompt,
+                               max_new_tokens=max_new, route=route))
+    eng.run_until_drained()
+    def host(x):   # a torch tensor or a JAX array
+        return np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+
+    done = sorted(eng.done, key=lambda r: r.rid)
+    summary = eng.stats_summary()
+    out = {"serve/outputs": np.concatenate([r.output for r in done]),
+           "serve/output_lengths": np.asarray([len(r.output)
+                                               for r in done]),
+           "serve/first_step_logits": host(eng.step_logits[0]).astype(
+               np.float32),
+           "serve/summary": np.asarray(
+               [[summary[r][m] for m, _ in eng.slo.metrics]
+                for r in SERVE_ROUTES], np.float32)}
+    for name in ("_m", "_step", "_sign", "_ticks"):
+        out[f"serve/slo/{name[1:]}"] = host(getattr(eng.slo, name))
+    return out
+
+
+def flatten_params(tree, prefix="serve/params"):
+    """{"serve/params/<path>": leaf} of a JAX parameter pytree (dicts and
+    lists), numpy leaves."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    else:
+        items = enumerate(tree)
+    out = {}
+    for k, v in items:
+        key = f"{prefix}/{k}"
+        if isinstance(v, (dict, list, tuple)):
+            out.update(flatten_params(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def unflatten_params(data, prefix="serve/params"):
+    """The JAX parameter pytree (numpy leaves) back from the golden keys:
+    path parts that are integers index lists."""
+    root = {}
+    for key in data:
+        if not key.startswith(prefix + "/"):
+            continue
+        parts = key[len(prefix) + 1:].split("/")
+        node = root
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = np.asarray(data[key])
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(root)
+
+
+def golden_serving():
+    """{key: array} of the JAX serving engine's run (``serve/*``)."""
+    import jax
+    from repro.configs import get_config, reduce_for_smoke
+    from repro.models import build_model
+    from repro.serve import engine as engine_mod
+
+    cfg = serve_config(reduce_for_smoke(get_config(SERVE_ARCH)))
+    model = build_model(cfg)
+    params = model.init(jax.random.PRNGKey(0))
+    out = flatten_params(jax.tree.map(np.asarray, params))
+    reqs = serve_requests()
+    out["serve/prompts"] = np.concatenate([p for p, _, _ in reqs])
+    out["serve/prompt_lengths"] = np.asarray([len(p) for p, _, _ in reqs])
+    real_time = engine_mod.time
+    engine_mod.time = FakeClock()
+    try:
+        eng = engine_mod.ServeEngine(model, params,
+                                     batch_slots=SERVE_SLOTS,
+                                     max_len=SERVE_MAX_LEN)
+        out.update(serve_engine_results(eng, engine_mod.Request))
+    finally:
+        engine_mod.time = real_time
+    return out
+
+
 def golden_checkpoints(root):
     """Write the JAX package's checkpoints under ``root`` (one directory
     per fleet: ``2u``, ``2u-window``, ``slo``) and return {key: array} of
@@ -731,6 +907,7 @@ def build(ckpt_root=None):
     arrays.update(golden_service())
     arrays.update(golden_eval())
     arrays.update(golden_placement())
+    arrays.update(golden_serving())
     return arrays
 
 
@@ -738,7 +915,16 @@ if __name__ == "__main__":
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "src"))
     os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
-    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
-    np.savez_compressed(GOLDEN, **build(CKPT_ROOT))
-    print(f"wrote {GOLDEN} ({os.path.getsize(GOLDEN)} bytes) and "
-          f"{CKPT_ROOT}")
+    if sys.argv[1:] == ["--only-serving"]:
+        with np.load(GOLDEN) as old:
+            arrays = {k: old[k] for k in old.files
+                      if not k.startswith("serve/")}
+        arrays.update(golden_serving())
+        np.savez_compressed(GOLDEN, **arrays)
+        print(f"wrote the serve/* keys of {GOLDEN} "
+              f"({os.path.getsize(GOLDEN)} bytes)")
+    else:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+        np.savez_compressed(GOLDEN, **build(CKPT_ROOT))
+        print(f"wrote {GOLDEN} ({os.path.getsize(GOLDEN)} bytes) and "
+              f"{CKPT_ROOT}")

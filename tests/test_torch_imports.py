@@ -52,6 +52,15 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
               "repro_torch.roofline.autotune", "repro_torch.roofline.report",
               "repro_torch.configs", "repro_torch.configs.platform",
               "repro_torch.models", "repro_torch.models.config",
+              "repro_torch.models.blocks", "repro_torch.models.causal_lm",
+              "repro_torch.models.model", "repro_torch.models.convert",
+              "repro_torch.models.layers",
+              "repro_torch.models.layers.attention",
+              "repro_torch.models.layers.norm",
+              "repro_torch.models.layers.rope",
+              "repro_torch.models.layers.embedding",
+              "repro_torch.models.layers.mlp", "repro_torch.serve.engine",
+              "repro_torch.launch", "repro_torch.launch.serve",
               "repro_torch.configs.qwen2_vl_2b",
               "repro_torch.configs.zamba2_2p7b", "repro_torch.configs.yi_6b",
               "repro_torch.configs.minitron_4b",
