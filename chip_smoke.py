@@ -181,7 +181,29 @@ each or more:
      decode tokens/s, TTFT p50/p99, B3 per flush, peak device memory, the
      step's bound (float32 weights and the KV cache read once at the
      gpu-h100 HwSpec's 3.35 TB/s) and its share, and a torch.profiler
-     trace of 8 steps of a second engine (busy share, top device ops).
+     trace of 8 steps of a second engine (busy share, top device ops);
+ 14. the training path (repro_torch.train, optim, monitor, the port of the
+     JAX package's train/ scaffold), which launches none of the port's
+     kernels: (a) the golden file's narrowed float32 yi-6b TrainState (the
+     JAX package's) carried onto the card through train_state_from_numpy,
+     8 train steps on the golden batches (step-1 loss within 1e-5 relative
+     and gradients within 1e-4 x max|g|, every loss within 1e-4 relative),
+     the quantile clip and both monitor fleets fed the golden block norms
+     and stats, bit for bit, and the committed JAX TrainState checkpoint
+     (tests/data/jax_checkpoints/train, step 4) restored on the card and
+     continued to step 8; (b) qwen2-vl-2b at full width (28 layers,
+     d_model 1536, 12/2 GQA heads, d_ff 8960, vocab 151,936, tied, M-RoPE;
+     1.544 B float32 parameters from a seeded generator, bf16
+     activations) trained by Trainer.run for 30 steps with AdamW under
+     warmup_cosine(1e-3, 10, 30), the quantile clip and the monitors on,
+     on SyntheticCorpus batches of 8 x 64: the loss falling (mean of the
+     last 5 below the first 5), qclip.warmup 30 with m moved off 1.0, the
+     monitors positive, stragglers; ms per step (host clock, CUDA events),
+     tokens/s, peak device memory, the step's bound (24 B per parameter
+     at 3.35 TB/s against 6 x params x tokens matmul operations) and its
+     share, and a torch.profiler trace of 2 more steps; (c)
+     launch/train.py on the card killed at step 30 of 60 (exit 42) and
+     restarted: resumed from step 30, finished at 60.
 
 frugal_update_auto launches B1 at the roofline autotuner's block size
 (repro_torch.roofline.autotune: 256 at the shapes of phases 5 and 9,
@@ -197,6 +219,7 @@ import gc
 import importlib.util
 import itertools
 import json
+import os
 import re
 import shutil
 import statistics
@@ -3500,6 +3523,395 @@ def phase_serving(torch, gm, card):
     return launches
 
 
+# --------------------------------------------------------------- phase 14
+TRAIN_ARCH = "qwen2-vl-2b"
+TRAIN_SEED = 0           # torch seed of the weights, key and corpus seed
+TRAIN_BATCH, TRAIN_SEQ = 8, 64
+TRAIN_LR = (1e-3, 10, 30)            # launch/train.py's warmup_cosine
+TRAIN_STEPS = 30
+TRAIN_TRACE_STEPS = 2
+# The golden entry on the card: the step-1 loss and gradients at the CPU
+# tests' tolerances, the later losses (and the restored checkpoint's) at
+# TRAIN_LATER_LOSS_REL, chosen before the first card run.
+TRAIN_LOSS_REL, TRAIN_GRAD_TOL, TRAIN_LATER_LOSS_REL = 1e-5, 1e-4, 1e-4
+# float32 matmuls outside the tensor cores (TF32 stays off): NVIDIA's
+# H100 SXM data sheet, dense.
+H100_F32_FLOPS = 67e12
+LAUNCH_ARGS = ["--arch", "yi-6b", "--steps", "60", "--batch", "4", "--seq",
+               "32", "--ckpt-every", "10"]
+LAUNCH_TIMEOUT_S = 300
+
+
+def train_golden(torch, gm, card):
+    """(a) The golden file's narrowed float32 yi-6b: the JAX TrainState
+    carried across onto the card, 8 port steps on the golden batches, the
+    step-1 loss and gradients and the later losses against the JAX
+    package's; the quantile clip and both monitor fleets fed the golden
+    block norms and stats, bit for bit; the committed JAX TrainState
+    checkpoint (step 4) restored on the card and continued to step 8."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.core.frugal import Frugal2UState
+    from repro_torch.models.convert import (flat_from_tree,
+                                            train_state_from_numpy)
+    from repro_torch.monitor import registry as mon
+    from repro_torch.optim import Optimizer, warmup_cosine
+    from repro_torch.optim.clipping import (QuantileClipState,
+                                            quantile_clip_scales)
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import make_train_step
+
+    t0 = time.perf_counter()
+    data = np.load(GOLDEN)
+    cfg = gm.serve_config(reduce_for_smoke(get_config(gm.SERVE_ARCH)))
+    opt = Optimizer(kind="adamw", lr_fn=warmup_cosine(*gm.TRAIN_LR))
+    init = train_state_from_numpy(cfg, gm.train_state_tree(data),
+                                  device="cuda")
+    if init.params.device.type != "cuda":
+        fail(f"training (a): the carried state is on {init.params.device}")
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+               for b in gm.train_batches(data)]
+    want = data["train/loss"]
+    loss, _ = init.params.loss(batches[0])
+    loss.backward()
+    loss1 = float(loss.detach())
+    if not abs(loss1 - want[0]) <= TRAIN_LOSS_REL * abs(want[0]):
+        fail(f"training (a): step-1 loss {loss1} != the JAX package's "
+             f"{want[0]}")
+    jg = flat_from_tree(cfg, gm.unflatten_params(data, "train/grads1"))
+    grad_err = 0.0
+    for name, p in init.params.named_parameters():
+        scale = float(np.abs(jg[name]).max())
+        err = float(np.abs(p.grad.cpu().numpy() - jg[name]).max())
+        grad_err = max(grad_err, err / scale)
+        if not err <= TRAIN_GRAD_TOL * scale:
+            fail(f"training (a): step-1 gradient of {name} differs by {err}"
+                 f" (max |g| {scale})")
+    init.params.zero_grad(set_to_none=True)
+    step = make_train_step(init.params, opt)
+    st, losses = init, []
+    for b in batches:
+        st, met = step(st, b)
+        losses.append(float(met["loss"]))
+    rel = np.abs(np.asarray(losses) - want) / np.abs(want)
+    if not rel.max() <= TRAIN_LATER_LOSS_REL:
+        fail(f"training (a): losses {losses} differ from the JAX package's "
+             f"{want.tolist()} by {rel.max()} relative")
+    if st.step != gm.TRAIN_STEPS or st.qclip.warmup != gm.TRAIN_STEPS:
+        fail("training (a): step or warmup count is off")
+
+    qclip = QuantileClipState(
+        Frugal2UState(*(torch.from_numpy(data[f"train/init/qclip/{f}"])
+                        .cuda() for f in ("m", "step", "sign"))), 0)
+    fleets = mon.init_train_monitors(init.params)
+    for i in range(gm.TRAIN_STEPS):
+        _, qclip = quantile_clip_scales(
+            torch.from_numpy(data["train/block_norms"][i]).cuda(), qclip,
+            data["train/clip_key"][i])
+        for f in ("m", "step", "sign"):
+            if not same_bits(torch, getattr(qclip.sketch, f).cpu(),
+                             torch.from_numpy(data[f"train/clip_{f}"][i])):
+                fail(f"training (a): clip sketch {f} differs at step {i}")
+        stats = {"stack": [{k: torch.from_numpy(
+            data[f"train/stats_{k}"][i]).cuda() for k in ("absmax", "rms")}]}
+        fleets = mon.update_train_monitors(fleets, stats)
+        for name in gm.TRAIN_MONITORS:
+            fl = getattr(fleets, name)
+            if fl.device.type != "cuda":
+                fail(f"training (a): monitor {name} runs on {fl.device}")
+            for f in ("m", "step", "sign"):
+                if not same_bits(torch, getattr(fl.state, f).cpu(),
+                                 torch.from_numpy(
+                                     data[f"train/{name}/{f}"][i])):
+                    fail(f"training (a): monitor {name} {f} differs at "
+                         f"step {i}")
+            if [int(x) for x in fl.cursor] != \
+                    data[f"train/{name}/cursor"][i].tolist():
+                fail(f"training (a): monitor {name} cursor differs")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = shutil.copytree(Path(gm.CKPT_ROOT) / "train",
+                              Path(tmp) / "train")
+        like = train_state_from_numpy(cfg, gm.train_state_tree(data),
+                                      device="cuda")
+        resumed, at = ckpt.restore_train_state(str(src), like)
+        cont = make_train_step(resumed.params, opt)
+        later = []
+        for b in batches[at:]:
+            resumed, met = cont(resumed, b)
+            later.append(float(met["loss"]))
+    rel_r = np.abs(np.asarray(later) - want[at:]) / np.abs(want[at:])
+    if at != gm.TRAIN_CKPT_STEP or not rel_r.max() <= TRAIN_LATER_LOSS_REL:
+        fail(f"training (a): the restored checkpoint (step {at}) continued "
+             f"to {later}, the JAX package's {want[at:].tolist()}")
+    say("train", check="a", arch=f"{gm.SERVE_ARCH} narrowed (d_model "
+        f"{cfg.d_model}, {cfg.num_layers} layers, float32)",
+        steps=gm.TRAIN_STEPS, step1_loss_rel_err=f"{abs(loss1 - want[0]) / abs(want[0]):.3e}",
+        step1_grad_err_over_max_g=f"{grad_err:.3e}",
+        loss_max_rel_err=f"{rel.max():.3e}",
+        restored_step=at, continued_loss_max_rel_err=f"{rel_r.max():.3e}",
+        clip_and_monitors="bit-identical to the JAX package's on its norms "
+                          "and stats", phase_s=f"{time.perf_counter() - t0:.1f}",
+        card=card)
+
+
+def train_activity_kind(name: str) -> str:
+    """A traced device activity's kind, from its kernel name."""
+    low = name.lower()
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "cublas")):
+        return "matmul"
+    if "copy" in low or "memcpy" in low or "memset" in low:
+        return "copy"
+    if "reduce" in low or "softmax" in low:
+        return "reduce"
+    if "elementwise" in low:
+        return "elementwise"
+    return "other"
+
+
+def train_bound(model, cfg, tokens):
+    """(bytes, operations, bound ms, which term) of one AdamW training
+    step: the step's inputs and outputs moved once (float32 params and
+    both moments read and written, 24 B a parameter), and the matmuls'
+    6 x params x tokens operations: bf16 at the gpu-h100 HwSpec's peak,
+    the float32 LM head (TF32 off) at H100_F32_FLOPS."""
+    from repro_torch.roofline import hw_for
+
+    hw = hw_for("gpu-h100")
+    n = sum(p.numel() for p in model.parameters())
+    head = cfg.vocab_size * cfg.d_model
+    norms = sum(p.numel() for name, p in model.named_parameters()
+                if "norm" in name)
+    nbytes = 24 * n
+    ops_bf16 = 6 * (n - head - norms) * tokens
+    ops_f32 = 6 * head * tokens
+    bytes_ms = nbytes / hw.hbm_bw * 1e3
+    ops_ms = (ops_bf16 / hw.peak_flops + ops_f32 / H100_F32_FLOPS) * 1e3
+    return nbytes, ops_bf16 + ops_f32, max(bytes_ms, ops_ms), \
+        "bytes" if bytes_ms >= ops_ms else "operations", bytes_ms, ops_ms
+
+
+def train_full(torch, card):
+    """(b) qwen2-vl-2b at full width, float32 parameters from a seeded
+    generator, AdamW, quantile clip and monitors on, SyntheticCorpus at
+    TRAIN_BATCH x TRAIN_SEQ: Trainer.run for TRAIN_STEPS steps, then a
+    traced window of TRAIN_TRACE_STEPS more steps."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import rng as crng
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.models import build_model
+    from repro_torch.monitor.registry import monitor_summary
+    from repro_torch.optim import Optimizer, warmup_cosine
+    from repro_torch.train import create_train_state, make_train_step
+    from repro_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    gc.collect()            # earlier phases' engines sit in reference cycles
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    cfg = get_config(TRAIN_ARCH)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TRAIN_SEED)
+    model = build_model(cfg, device="cuda", generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    if (len(model.layers), cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.d_ff, cfg.vocab_size, cfg.pos_type, cfg.tie_embeddings) != \
+            (28, 1536, 12, 2, 8960, 151936, "mrope", True) \
+            or next(model.parameters()).dtype != torch.float32:
+        fail("training (b): the model is not qwen2-vl-2b at full width in "
+             "float32")
+    opt = Optimizer(kind="adamw", lr_fn=warmup_cosine(*TRAIN_LR))
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=TRAIN_SEQ,
+                                        batch_size=TRAIN_BATCH,
+                                        seed=TRAIN_SEED))
+    example = next(corpus.iterate(prefetch=0, device="cuda"))
+    state = create_train_state(model, opt, crng.prng_key(TRAIN_SEED),
+                               example_batch=example)
+    step_fn = make_train_step(model, opt)
+    events = []
+
+    def timed_step(st, batch):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = step_fn(st, batch)
+        b.record()
+        events.append((a, b))
+        return out
+
+    it = corpus.iterate(device="cuda")
+    log = []
+    trainer = Trainer(model, opt, timed_step, it, log_every=10,
+                      log_fn=log.append)
+    t0 = time.perf_counter()
+    state = trainer.run(state, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.metrics_history
+    losses = [m["loss"] for m in hist]
+    if len(hist) != TRAIN_STEPS or state.step != TRAIN_STEPS:
+        fail(f"training (b): {len(hist)} steps, state at {state.step}")
+    if not all(np.isfinite(losses)) or not all(
+            np.isfinite(m["grad_norm"]) for m in hist):
+        fail(f"training (b): non-finite loss or grad norm: {losses}")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last5 < first5:
+        fail(f"training (b): the loss did not fall ({first5} -> {last5})")
+    m_clip = state.qclip.sketch.m.cpu().numpy()
+    if state.qclip.warmup != TRAIN_STEPS or not np.any(
+            np.abs(m_clip - 1.0) > 1e-3):
+        fail(f"training (b): the clip did not engage (warmup "
+             f"{state.qclip.warmup}, m {m_clip.tolist()})")
+    summ = {k: v.cpu().numpy() for k, v in
+            monitor_summary(state.monitors).items()}
+    if summ["act_absmax_q99"].shape != (28,) or not (
+            np.all(summ["act_absmax_q99"] > 0)
+            and np.all(summ["act_rms_q50"] > 0)):
+        fail(f"training (b): monitors not positive: {summ}")
+    dev_ms = [a.elapsed_time(b) for a, b in events]
+    host_ms = [m["step_time_s"] * 1e3 for m in hist]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = host_ms[5:]
+    nbytes, nops, bound_ms, bound_by, bytes_ms, ops_ms = train_bound(
+        model, cfg, tokens)
+    step_ms = statistics.median(steady)
+    say("train", check="b", arch=TRAIN_ARCH, layers=len(model.layers),
+        d_model=cfg.d_model, heads=f"{cfg.num_heads}/{cfg.num_kv_heads}",
+        d_ff=cfg.d_ff, vocab=cfg.vocab_size, params=n_params,
+        param_dtype="float32", activations=cfg.dtype, optimizer="adamw",
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+        run_s=f"{run_s:.3f}", card=card)
+    say("train", check="b", step_ms_host_median_steps_6_30=f"{step_ms:.3f}",
+        step_ms_host_p10_p90=f"{pct(steady, 10):.3f},{pct(steady, 90):.3f}",
+        step_ms_host_first=f"{host_ms[0]:.3f}",
+        step_ms_device_median_steps_6_30=f"{statistics.median(dev_ms[5:]):.3f}",
+        tokens_per_s=f"{tokens / step_ms * 1e3:.1f}",
+        max_memory_allocated_bytes=peak, held_before_bytes=held,
+        peak_of_training_bytes=peak - held,
+        note="host: the trainer's clock around the step, which ends in the "
+             "metrics' host copy; device: CUDA events around the step call; "
+             "memory: the peak less what was allocated before the model")
+    say("train", check="b", step_bytes=nbytes, step_operations=nops,
+        bytes_bound_ms=f"{bytes_ms:.3f}", operations_bound_ms=f"{ops_ms:.3f}",
+        step_bound_ms=f"{bound_ms:.3f}", bound_by=bound_by,
+        step_bound_share=f"{bound_ms / step_ms:.4f}",
+        bound_note="24 B/param (params and moments in and out) over the "
+                   "gpu-h100 HwSpec's 3.35 TB/s; 6 x params x tokens "
+                   "matmul operations, bf16 at 989 TFLOP/s, the float32 "
+                   "LM head at 67 TFLOP/s")
+    say("train", check="b", first_loss=f"{losses[0]:.4f}",
+        last_loss=f"{losses[-1]:.4f}", mean_first5=f"{first5:.4f}",
+        mean_last5=f"{last5:.4f}", qclip_warmup=state.qclip.warmup,
+        qclip_m=",".join(f"{x:.4f}" for x in m_clip),
+        clip_blocks="embed,final_norm,prefix,stack",
+        grad_norm_first_last=f"{hist[0]['grad_norm']:.4f},"
+                             f"{hist[-1]['grad_norm']:.4f}",
+        monitors_absmax_q99_min_max=f"{summ['act_absmax_q99'].min():.4f},"
+                                    f"{summ['act_absmax_q99'].max():.4f}",
+        monitors_rms_q50_min_max=f"{summ['act_rms_q50'].min():.4f},"
+                                 f"{summ['act_rms_q50'].max():.4f}",
+        stragglers=sum(m["straggler"] for m in hist),
+        step_time_q99_ms=f"{trainer.step_monitor.q99_ms:.3f}")
+
+    def window():
+        nonlocal state
+        t = time.perf_counter()
+        for _ in range(TRAIN_TRACE_STEPS):
+            state, met = step_fn(state, next(it))
+            float(met["loss"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    window_ms, names, busy_ms = device_trace(torch, window)
+    if names is None:
+        say("train", check="trace", steps=TRAIN_TRACE_STEPS,
+            window_ms=f"{window_ms:.3f}", device_busy_share="null",
+            note="no device trace: not measured", card=card)
+    else:
+        say("train", check="trace", steps=TRAIN_TRACE_STEPS,
+            window_ms=f"{window_ms:.3f}", device_busy_ms=f"{busy_ms:.3f}",
+            device_busy_share=f"{busy_ms / window_ms:.4f}",
+            device_activities=sum(c for c, _ in names.values()),
+            note="torch.profiler, CUDA activity only", card=card)
+        kinds = collections.Counter()
+        for name, (_, ms) in names.items():
+            kinds[train_activity_kind(name)] += ms / TRAIN_TRACE_STEPS
+        say("train", check="trace", ms_per_step_by_kind=json.dumps(
+            {k: round(v, 4) for k, v in kinds.most_common()}),
+            note="matmul: gemm kernels; copy: casts and copies; "
+                 "elementwise: the rest of the pointwise kernels (AdamW, "
+                 "the clip, activations); reduce: reductions")
+        for name, (calls, ms) in sorted(names.items(),
+                                        key=lambda kv: -kv[1][1])[:10]:
+            say("train", check="trace", activity=name[:90], calls=calls,
+                ms_per_step=f"{ms / TRAIN_TRACE_STEPS:.4f}",
+                share=f"{ms / window_ms:.4f}")
+    del state, model, trainer, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("train", check="b", phase_s=f"{time.perf_counter() - t_phase:.1f}")
+
+
+def train_launcher(card):
+    """(c) launch/train.py on the card (its default device): the reduced
+    yi-6b killed at step 30 (exit 42, latest committed step 30), then
+    restarted: "resumed from step 30", finished at 60."""
+    from repro_torch.train import checkpoint as ckpt
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        args = [sys.executable, "-m", "repro_torch.launch.train",
+                *LAUNCH_ARGS, "--ckpt-dir", tmp]
+        r1 = subprocess.run(args + ["--die-at-step", "30"], env=env,
+                            capture_output=True, text=True,
+                            timeout=LAUNCH_TIMEOUT_S)
+        if r1.returncode != 42 or ckpt.latest_step(tmp) != 30:
+            fail(f"training (c): the killed run exited {r1.returncode} with "
+                 f"latest step {ckpt.latest_step(tmp)}: {r1.stderr[-800:]}")
+        r2 = subprocess.run(args, env=env, capture_output=True, text=True,
+                            timeout=LAUNCH_TIMEOUT_S)
+        if r2.returncode != 0:
+            fail(f"training (c): the restart exited {r2.returncode}: "
+                 f"{r2.stderr[-800:]}")
+        out = json.loads(r2.stdout.strip().splitlines()[-1])
+        if "resumed from step 30" not in r2.stdout + r2.stderr \
+                or out["final_step"] != 60 or ckpt.latest_step(tmp) != 60 \
+                or not out["device"].startswith("cuda"):
+            fail(f"training (c): the restart did not resume at 30 and "
+                 f"finish 60 on the card: {out}")
+    say("train", check="c", killed_exit=r1.returncode, latest_step_after_kill=30,
+        resumed_from=30, final_step=out["final_step"],
+        device=out["device"], restart_first_loss=f"{out['first_loss']:.4f}",
+        restart_last_loss=f"{out['last_loss']:.4f}",
+        wall_s=f"{time.perf_counter() - t0:.1f}", card=card)
+
+
+def phase_training(torch, gm, card):
+    """Phase 14: (a) the golden training entry, (b) qwen2-vl-2b at full
+    width for TRAIN_STEPS steps, (c) the launcher's kill and restart. The
+    path launches none of the port's kernels."""
+    from repro_torch.kernels import frugal_update as fk
+
+    t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        fail("training: TF32 matmuls are on; the float32 golden check "
+             "needs them off")
+    launches = (fk.launch_count, fk.scatter_launch_count)
+    train_golden(torch, gm, card)
+    train_full(torch, card)
+    train_launcher(card)
+    if (fk.launch_count, fk.scatter_launch_count) != launches:
+        fail("training: the path launched a frugal kernel")
+    say("train", phase_s=f"{time.perf_counter() - t0:.1f}", card=card)
+
+
 def main() -> None:
     import torch
 
@@ -3543,6 +3955,7 @@ def main() -> None:
     flush_entry = next(e for e in entries
                        if e["name"].startswith("frugal_program_scatter[SLO"))
     flush_entry["launches"] += phase_serving(torch, gm, card)
+    phase_training(torch, gm, card)
     torch.cuda.synchronize()
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("JAX or the JAX package was imported")

@@ -19,10 +19,15 @@ Entry points run on the CUDA device unless the caller passes
 its block size; ``configs`` and ``models.config`` hold the published model
 configurations it prices. ``models`` runs the attention-only decoders of
 the model zoo, which ``serve.ServeEngine`` serves (``launch.serve`` is its
-driver), with each route's SLO quantiles in an ``SLOFleet``.
+driver), with each route's SLO quantiles in an ``SLOFleet``, and trains
+them (``train``, ``optim``, ``monitor``; ``launch.train`` is the driver)
+with the paper's sketch inside the step: a Frugal-2U q95 of each block's
+gradient norm clips the gradients, and frugal fleets track activation
+statistics.
 """
 
 # The subpackages, entry point first (``from repro_torch import *`` imports
 # them; ``import repro_torch`` alone imports none).
 __all__ = ["api", "service", "serve", "data", "resilience", "train",
-           "core", "kernels", "roofline", "configs", "models", "launch"]
+           "optim", "monitor", "core", "kernels", "roofline", "configs",
+           "models", "launch"]

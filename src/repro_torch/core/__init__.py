@@ -7,14 +7,16 @@ module):
                   lane programs.
   reference.py  — scalar pure-Python transcriptions (bit-exact oracles).
   sketch.py     — GroupedQuantileSketch.
-  rng.py        — the counter-hash uniforms shared with the CUDA kernels.
+  rng.py        — the counter-hash uniforms shared with the CUDA kernels,
+                  and threefry2x32 split / fold_in of JAX-style key words
+                  (the training path's keys).
   packing.py    — (step, sign) -> one int32 word.
   drift.py      — decayed 2U and the two-sketch window.
   streaming.py  — chunked dense-kernel ingest of unbounded streams.
+  batched.py    — the binomial batch update behind
+                  GroupedQuantileSketch.ingest_tensor (its normals from a
+                  torch.Generator: a distributional contract).
   baselines/    — GK, q-digest, Selection, reservoir, exact (paper §6).
-
-The JAX package's ``batched.py`` (the binomial batch update) is not
-ported: it draws its normals from JAX's threefry generator.
 """
 
 from .frugal import (
@@ -37,6 +39,7 @@ from .program import (
     registered_families,
 )
 from .sketch import GroupedQuantileSketch, PackedSketchState
+from .batched import batched_frugal2u_update
 from .drift import DriftConfig, WindowState
 from .packing import (
     PackedFrugal2UState,
@@ -58,6 +61,7 @@ __all__ = [
     "frugal2u_process",
     "frugal2u_update",
     "program_process_seeded",
+    "batched_frugal2u_update",
     "LaneProgram",
     "StateLayout",
     "make_program",

@@ -9,6 +9,12 @@ arithmetic). The CUDA kernel computes the same hash in ``uint32_t``
 Python ints stand for scalars: a seed or tick given as an int becomes a 0-d
 CPU int32 tensor, which PyTorch lets take part in an operation on any
 device, so a per-tick hash on the card copies nothing to it.
+
+The training path threads a JAX-style key: ``prng_key``, ``split`` and
+``fold_in`` are threefry2x32 on raw uint32 key words (numpy, on the host),
+giving the bits ``jax.random.PRNGKey`` / ``split`` / ``fold_in`` give under
+``jax_threefry_partitionable`` (JAX's default): child ``i`` of a split and
+``fold_in(key, i)`` are both ``threefry2x32(key, (0, i))``.
 """
 from __future__ import annotations
 
@@ -93,6 +99,54 @@ def seed_from_key(key) -> int:
     for i in range(1, data.numel()):
         seed = _fmix32(seed * _C_TICK + data[i])
     return int(seed)
+
+
+# threefry2x32 (Salmon et al. 2011), 20 rounds, as jax.random computes it.
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _rotl(x: np.ndarray, r: int) -> np.ndarray:
+    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+
+def threefry2x32(key, x0, x1):
+    """The threefry2x32 block cipher of counter words (x0, x1) under the
+    two key words ``key``: uint32 arrays of one shape in, two out."""
+    k0, k1 = (np.uint32(w) for w in np.asarray(key, np.uint32).reshape(2))
+    ks = (k0, k1, np.uint32(k0 ^ k1 ^ np.uint32(_PARITY)))
+    x = [np.asarray(x0, np.uint32) + ks[0], np.asarray(x1, np.uint32) + ks[1]]
+    with np.errstate(over="ignore"):
+        for i in range(5):
+            for r in _ROTATIONS[i % 2]:
+                x[0] = x[0] + x[1]
+                x[1] = _rotl(x[1], r) ^ x[0]
+            x[0] = x[0] + ks[(i + 1) % 3]
+            x[1] = x[1] + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x[0], x[1]
+
+
+def prng_key(seed: int) -> np.ndarray:
+    """``jax.random.PRNGKey(seed)``'s two uint32 words for an int32 seed
+    (JAX's default 32-bit mode): (0, the seed's bits)."""
+    seed = int(seed)
+    if not -2 ** 31 <= seed < 2 ** 31:
+        raise ValueError(f"seed {seed} is outside int32")
+    return np.asarray([0, seed & 0xFFFFFFFF], np.uint32)
+
+
+def split(key, num: int = 2) -> np.ndarray:
+    """[num, 2] uint32 child keys of ``key`` (``jax.random.split``)."""
+    hi, lo = threefry2x32(key, np.zeros(num, np.uint32),
+                          np.arange(num, dtype=np.uint32))
+    return np.stack([hi, lo], axis=1)
+
+
+def fold_in(key, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)``: ``key`` mixed with a uint32."""
+    hi, lo = threefry2x32(key, np.zeros(1, np.uint32),
+                          np.asarray([int(data) & 0xFFFFFFFF], np.uint32))
+    return np.concatenate([hi, lo])
 
 
 def tick_uniforms(key, num: int, device=None) -> torch.Tensor:

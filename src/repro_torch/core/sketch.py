@@ -233,6 +233,33 @@ class GroupedQuantileSketch:
             lanes_per_group=lanes_per_group)
         return self.with_planes(planes)
 
+    def ingest_tensor(self, x: torch.Tensor, key,
+                      group_axis: int = -1) -> "GroupedQuantileSketch":
+        """Batched binomial update from a tensor (``core.batched``): every
+        axis but ``group_axis`` flattens into each group's item batch.
+        ``key``: uint32 key words. Vanilla lanes only."""
+        from .batched import batched_frugal2u_update
+
+        if self.drift is not None:
+            raise ValueError(
+                "ingest_tensor's batched binomial update collapses the tick "
+                "axis; drift-aware lanes need per-tick phase — use "
+                "process/process_seeded")
+        x = torch.as_tensor(x, device=self.device)
+        x = torch.movedim(x, group_axis, -1)
+        x = x.reshape(-1, x.shape[-1])            # [B, G]
+        if self.algo == "1u":
+            # 1U batched = 2U batched with the step frozen at 1.
+            one = torch.ones_like(self.m)
+            st = batched_frugal2u_update(
+                frugal.Frugal2UState(self.m, one, one), x, key,
+                self.quantile, freeze_step=True)
+            return dataclasses.replace(self, m=st.m)
+        st = batched_frugal2u_update(
+            frugal.Frugal2UState(self.m, self.step, self.sign), x, key,
+            self.quantile)
+        return dataclasses.replace(self, m=st.m, step=st.step, sign=st.sign)
+
 
 def sketch_update_jit(sk: GroupedQuantileSketch, items: torch.Tensor,
                       rand: torch.Tensor, algo: str = "2u"

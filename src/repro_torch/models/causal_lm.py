@@ -12,18 +12,19 @@ Parameters, as the JAX package names them:
   lm_head        untied output projection (if not tied)
 
 This module owns embedding, positions (RoPE / M-RoPE / learned /
-sinusoidal), the layer loop and the KV cache; all sequence compute goes
-through ``blocks``. The loss belongs to the training slice (ROADMAP A
-item 5). The JAX package's ``remat`` and ``unroll_layers`` are settings of
-its compiler and its sharding constraints (``shard_activation``,
-``seq_sharded_residual``) place activations across a mesh; none has a
-meaning on one device, and the port has none of them.
+sinusoidal), the layer loop, the loss and the KV cache; all sequence
+compute goes through ``blocks``. The JAX package's ``remat`` and
+``unroll_layers`` are settings of its compiler and its sharding
+constraints (``shard_activation``, ``seq_sharded_residual``) place
+activations across a mesh; none has a meaning on one device, and the
+port has none of them.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Mapping, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from . import blocks
@@ -157,6 +158,38 @@ class CausalLM(nn.Module):
             x = x[:, -1:]
         return self._head(x), stats_all
 
+    # ------------------------------------------------------------------ loss
+    def loss(self, batch: Mapping[str, torch.Tensor]):
+        """Next-token cross-entropy. ``batch``: tokens (or embeds),
+        targets, and optionally positions and a mask. Returns (loss + aux,
+        {"ce_loss", "aux_loss", "stats"}), the dict's entries detached:
+        the monitors read them outside the graph."""
+        logits, stats = self(tokens=batch.get("tokens"),
+                             embeds=batch.get("embeds"),
+                             positions=batch.get("positions"))
+        targets = batch["targets"].long()
+        mask = batch.get("mask")
+        logp = torch.log_softmax(logits, dim=-1)
+        if self.cfg.onehot_xent:
+            # H2 of the JAX package: a one-hot contraction in place of the
+            # gather, which keeps the reduction local per vocab shard
+            # under SPMD; the same value on one device.
+            onehot = F.one_hot(targets, logp.shape[-1]).to(logp.dtype)
+            nll = -torch.einsum("bsv,bsv->bs", logp, onehot)
+        else:
+            nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+        if mask is not None:
+            mask = mask.to(nll.dtype)
+            loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask),
+                                                       min=1.0)
+        else:
+            loss = torch.mean(nll)
+        aux_loss = _collect_aux_loss(stats, loss.device)
+        stats = {k: _detached(v) for k, v in stats.items()}
+        return loss + aux_loss, {"ce_loss": loss.detach(),
+                                 "aux_loss": aux_loss.detach(),
+                                 "stats": stats}
+
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_len: int,
                    dtype=None) -> List[Dict[str, torch.Tensor]]:
@@ -199,3 +232,32 @@ class CausalLM(nn.Module):
             x, cache, _ = layer.decode(x, cache, pos, cos, sin)
             new.append(cache)
         return self._head(x), new
+
+
+def _detached(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach()
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_detached(v) for v in tree)
+    return tree
+
+
+def _collect_aux_loss(stats, device=None) -> torch.Tensor:
+    """The sum of every block's ``aux_loss`` (MoE balance terms), a
+    float32 scalar; zero for the attention-only decoders."""
+    total = torch.zeros((), dtype=torch.float32, device=device)
+
+    def add(st):
+        nonlocal total
+        if isinstance(st, dict) and "aux_loss" in st:
+            total = total + torch.sum(st["aux_loss"])
+
+    for v in stats.values():
+        if isinstance(v, dict):
+            add(v)
+        elif isinstance(v, (list, tuple)):
+            for st in v:
+                add(st)
+    return total

@@ -31,6 +31,13 @@ per-lane target), and a ``Frugal2UState`` as ``(m, step_sign)``. Leaves are
 written as numpy arrays of their own dtype: the fleets pass cursor fields
 as 0-d int32 arrays, planes as float32, packed words as int32, so the
 CRC32s equal the JAX package's for the same state.
+
+A training run's ``TrainState`` is stored in the JAX package's layout
+(``save_train_state`` / ``restore_train_state``, through
+``models.convert.train_state_to_numpy``): each unit kind's layers stacked
+on a leading axis as the JAX scan holds them, the moments likewise, each
+monitor fleet as (packed lane sketch, cursor), so a training checkpoint
+crosses between the packages both ways.
 """
 from __future__ import annotations
 
@@ -53,7 +60,7 @@ from repro_torch.resilience import chaos
 
 __all__ = ["CheckpointCorruptError", "LeafSpec", "save_checkpoint",
            "restore_checkpoint", "committed_steps", "latest_step",
-           "read_manifest"]
+           "read_manifest", "save_train_state", "restore_train_state"]
 
 
 _SHARD = "shard_0.npz"     # one writer: the port places a fleet on one device
@@ -461,3 +468,27 @@ def _restore_step(ckpt_dir: str, step: int, like: Any,
         restored.append(torch.from_numpy(arr).to(device))
     packed = _unflatten(template, iter(restored))
     return _sync_sketch_drift(_unpack_sketches(packed, device), like), step
+
+
+def save_train_state(ckpt_dir: str, step: int, state, keep: int = 3) -> str:
+    """``save_checkpoint`` of a port ``TrainState`` in the JAX package's
+    leaf order (stacked units)."""
+    from repro_torch.models.convert import train_state_to_numpy
+
+    return save_checkpoint(ckpt_dir, step, train_state_to_numpy(state),
+                           keep=keep)
+
+
+def restore_train_state(ckpt_dir: str, like, step: Optional[int] = None):
+    """Restore a training checkpoint (either package's) into ``like``'s
+    structure: its model's weights are overwritten in place, everything
+    else is rebuilt on the model's device. Returns (state, step)."""
+    from repro_torch.models.convert import (train_state_from_numpy,
+                                            train_state_to_numpy)
+
+    model = like.params
+    tree, step = restore_checkpoint(
+        ckpt_dir, train_state_to_numpy(like, shapes_only=True), step=step,
+        device=model.device)
+    return train_state_from_numpy(model.cfg, tree, model.device,
+                                  model=model), step

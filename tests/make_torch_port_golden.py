@@ -96,10 +96,29 @@ prompt longer than max_len). The file holds the prompts, the greedy
 outputs, the logits of the first engine step's decode call, the
 ``stats_summary()`` and the SLO fleet's planes and clocks.
 
+The training path (keys ``train/*``, checkpoint directory
+``tests/data/jax_checkpoints/train``): the same narrowed float32 yi-6b
+(``serve_config``), its JAX ``TrainState`` from ``create_train_state``
+with ``jax.random.PRNGKey(0)`` and AdamW under ``warmup_cosine(1e-3, 10,
+30)``, stored leaf by leaf (``train/init/*``: parameters, moments, step,
+key words, both monitor fleets' planes and cursors, the clip sketch), and
+8 batches of the JAX ``SyntheticCorpus`` (vocab 256, seq 32, batch 4,
+seed 0; the tokens themselves, ``train/tokens`` and ``train/targets``).
+Per step of the jitted ``train_step``: the loss, ce loss and grad norm
+(``train/loss`` ...), and the step-1 gradients (``train/grads1/*``). Beside
+it, the frugal parts alone, chained from the initial state: each step's
+block norms (from ``value_and_grad`` of the loss at that step's
+parameters) and key words, and the clip sketch after ``quantile_clip``
+on them; each step's flattened activation stats and both monitor fleets'
+planes and cursors after ``update_train_monitors`` on them. The
+checkpoint holds the ``TrainState`` after 4 steps (step 4).
+
     PYTHONPATH=src python tests/make_torch_port_golden.py
     PYTHONPATH=src python tests/make_torch_port_golden.py --only-serving
+    PYTHONPATH=src python tests/make_torch_port_golden.py --only-training
 
-``--only-serving`` rewrites the ``serve/*`` keys and keeps every other key
+``--only-serving`` (``--only-training``) rewrites the ``serve/*``
+(``train/*`` and the training checkpoint) keys and keeps every other key
 of the file as it is.
 """
 import os
@@ -149,6 +168,9 @@ SERVE_WIDTHS = dict(d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
                     d_ff=128, vocab_size=256)
 SERVE_ROUTES = ("api", "batch", "chat")
 SERVE_REQUESTS, SERVE_LONG_PROMPT = 6, 40
+TRAIN_STEPS, TRAIN_CKPT_STEP, TRAIN_SEQ, TRAIN_BATCH = 8, 4, 32, 4
+TRAIN_LR = (1e-3, 10, 30)        # warmup_cosine(peak, warmup, total)
+TRAIN_MONITORS = ("act_absmax_q99", "act_rms_q50")
 
 
 def random_planes(rng, prog, lanes):
@@ -850,6 +872,134 @@ def golden_serving():
     return out
 
 
+def train_state_arrays(state, prefix="train/init"):
+    """{key: array} of a JAX ``TrainState`` (AdamW, two monitor fleets,
+    the clip), numpy leaves."""
+    import jax
+
+    st = jax.tree.map(np.asarray, state)
+    out = flatten_params(st.params, f"{prefix}/params")
+    out.update(flatten_params(st.opt_state.mu, f"{prefix}/mu"))
+    out.update(flatten_params(st.opt_state.nu, f"{prefix}/nu"))
+    out[f"{prefix}/count"] = st.opt_state.count
+    out[f"{prefix}/step"] = st.step
+    out[f"{prefix}/rng"] = st.rng
+    for name in TRAIN_MONITORS:
+        fleet = getattr(st.monitors, name)
+        for f in ("m", "step", "sign"):
+            out[f"{prefix}/{name}/{f}"] = getattr(fleet.state, f)
+        out[f"{prefix}/{name}/cursor"] = np.asarray(
+            [int(x) for x in fleet.cursor], np.int32)
+    out[f"{prefix}/n_groups"] = np.asarray(
+        [st.monitors.n_act_groups, st.monitors.n_moe_groups], np.int32)
+    for f in ("m", "step", "sign"):
+        out[f"{prefix}/qclip/{f}"] = getattr(st.qclip.sketch, f)
+    out[f"{prefix}/qclip/warmup"] = st.qclip.warmup
+    return out
+
+
+def train_state_tree(data, prefix="train/init"):
+    """The ``TrainState`` of ``train_state_arrays`` back, as namespaces
+    with the JAX package's field names and numpy leaves (what
+    ``repro_torch.models.convert.train_state_from_numpy`` reads)."""
+    from types import SimpleNamespace as NS
+
+    def fleet(name):
+        return NS(state=NS(**{f: data[f"{prefix}/{name}/{f}"]
+                              for f in ("m", "step", "sign")}),
+                  cursor=tuple(data[f"{prefix}/{name}/cursor"]))
+
+    n_act, n_moe = data[f"{prefix}/n_groups"]
+    return NS(
+        params=unflatten_params(data, f"{prefix}/params"),
+        opt_state=NS(mu=unflatten_params(data, f"{prefix}/mu"),
+                     nu=unflatten_params(data, f"{prefix}/nu"),
+                     count=data[f"{prefix}/count"]),
+        step=data[f"{prefix}/step"], rng=data[f"{prefix}/rng"],
+        monitors=NS(act_absmax_q99=fleet("act_absmax_q99"),
+                    act_rms_q50=fleet("act_rms_q50"),
+                    expert_load_q99=None, n_act_groups=n_act,
+                    n_moe_groups=n_moe),
+        qclip=NS(sketch=NS(**{f: data[f"{prefix}/qclip/{f}"]
+                              for f in ("m", "step", "sign")}),
+                 warmup=data[f"{prefix}/qclip/warmup"]))
+
+
+def train_batches(data):
+    """The golden steps' batches: [{tokens, targets}] int32 numpy."""
+    return [{"tokens": data["train/tokens"][i],
+             "targets": data["train/targets"][i]}
+            for i in range(data["train/tokens"].shape[0])]
+
+
+def golden_training(root):
+    """{key: array} of the JAX training path (``train/*``); the checkpoint
+    after TRAIN_CKPT_STEP steps goes to ``root``/train."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config, reduce_for_smoke
+    from repro.data.pipeline import DataConfig, SyntheticCorpus
+    from repro.models import build_model
+    from repro.monitor import registry as mon
+    from repro.optim import Optimizer, warmup_cosine
+    from repro.optim.clipping import global_norm, quantile_clip
+    from repro.train import checkpoint as ckpt
+    from repro.train import create_train_state, make_train_step
+
+    cfg = serve_config(reduce_for_smoke(get_config(SERVE_ARCH)))
+    model = build_model(cfg)
+    opt = Optimizer(kind="adamw", lr_fn=warmup_cosine(*TRAIN_LR))
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=TRAIN_SEQ,
+                                        batch_size=TRAIN_BATCH))
+    batches = [corpus.batch(i) for i in range(TRAIN_STEPS)]
+    state = create_train_state(model, opt, jax.random.PRNGKey(0),
+                               example_batch=batches[0])
+    out = train_state_arrays(state)
+    out["train/tokens"] = np.stack([b["tokens"] for b in batches])
+    out["train/targets"] = np.stack([b["targets"] for b in batches])
+    step = jax.jit(make_train_step(model, opt))
+    grad_fn = jax.jit(jax.value_and_grad(model.loss, has_aux=True))
+    qclip, monitors = state.qclip, state.monitors
+    rows = {k: [] for k in ("loss", "ce_loss", "grad_norm", "block_norms",
+                            "clip_key", "clip_m", "clip_step", "clip_sign",
+                            "stats_absmax", "stats_rms")}
+    for name in TRAIN_MONITORS:
+        for f in ("m", "step", "sign", "cursor"):
+            rows[f"{name}/{f}"] = []
+    for i, b in enumerate(batches):
+        jb = {k: jnp.asarray(v) for k, v in b.items()}
+        _, k_clip = jax.random.split(state.rng)
+        (_, aux), grads = grad_fn(state.params, jb)
+        if i == 0:
+            out.update(flatten_params(jax.tree.map(np.asarray, grads),
+                                      "train/grads1"))
+        blocks = [grads[k] for k in sorted(grads)]
+        _, qclip, norms = quantile_clip(blocks, qclip, k_clip)
+        rows["block_norms"].append(np.asarray(norms))
+        rows["clip_key"].append(np.asarray(k_clip))
+        for f in ("m", "step", "sign"):
+            rows[f"clip_{f}"].append(np.asarray(getattr(qclip.sketch, f)))
+        a, r, _ = mon._flatten_stats(aux["stats"])
+        rows["stats_absmax"].append(np.asarray(a))
+        rows["stats_rms"].append(np.asarray(r))
+        monitors = mon.update_train_monitors(monitors, aux["stats"])
+        for name in TRAIN_MONITORS:
+            fleet = getattr(monitors, name)
+            for f in ("m", "step", "sign"):
+                rows[f"{name}/{f}"].append(np.asarray(getattr(fleet.state,
+                                                              f)))
+            rows[f"{name}/cursor"].append(np.asarray(
+                [int(x) for x in fleet.cursor], np.int32))
+        state, met = step(state, jb)
+        for k in ("loss", "ce_loss", "grad_norm"):
+            rows[k].append(np.float32(met[k]))
+        if i + 1 == TRAIN_CKPT_STEP:
+            ckpt.save_checkpoint(os.path.join(root, "train"), i + 1, state)
+    out.update({f"train/{k}": np.stack(v) for k, v in rows.items()})
+    return out
+
+
 def golden_checkpoints(root):
     """Write the JAX package's checkpoints under ``root`` (one directory
     per fleet: ``2u``, ``2u-window``, ``slo``) and return {key: array} of
@@ -908,6 +1058,7 @@ def build(ckpt_root=None):
     arrays.update(golden_eval())
     arrays.update(golden_placement())
     arrays.update(golden_serving())
+    arrays.update(golden_training(ckpt_root))
     return arrays
 
 
@@ -915,13 +1066,20 @@ if __name__ == "__main__":
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "src"))
     os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
-    if sys.argv[1:] == ["--only-serving"]:
+    only = {"--only-serving": "serve/", "--only-training": "train/"}
+    if len(sys.argv) == 2 and sys.argv[1] in only:
+        prefix = only[sys.argv[1]]
         with np.load(GOLDEN) as old:
             arrays = {k: old[k] for k in old.files
-                      if not k.startswith("serve/")}
-        arrays.update(golden_serving())
+                      if not k.startswith(prefix)}
+        if prefix == "serve/":
+            arrays.update(golden_serving())
+        else:
+            shutil.rmtree(os.path.join(CKPT_ROOT, "train"),
+                          ignore_errors=True)
+            arrays.update(golden_training(CKPT_ROOT))
         np.savez_compressed(GOLDEN, **arrays)
-        print(f"wrote the serve/* keys of {GOLDEN} "
+        print(f"wrote the {prefix}* keys of {GOLDEN} "
               f"({os.path.getsize(GOLDEN)} bytes)")
     else:
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)

@@ -69,7 +69,14 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
               "repro_torch.configs.deepseek_v2_lite",
               "repro_torch.configs.olmoe_1b_7b",
               "repro_torch.configs.whisper_large_v3",
-              "repro_torch.configs.rwkv6_1p6b"):
+              "repro_torch.configs.rwkv6_1p6b", "repro_torch.optim",
+              "repro_torch.optim.optimizer", "repro_torch.optim.schedule",
+              "repro_torch.optim.clipping", "repro_torch.monitor",
+              "repro_torch.monitor.registry",
+              "repro_torch.monitor.moe_stats", "repro_torch.train",
+              "repro_torch.train.train_state", "repro_torch.train.steps",
+              "repro_torch.train.trainer", "repro_torch.launch.train",
+              "repro_torch.core.batched"):
         assert m in mods
     code = (
         "import importlib, sys\n"

@@ -296,6 +296,31 @@ def test_decode_steps_and_greedy_tokens_match_jax(arch):
                                   np.concatenate(jgen, 1))
 
 
+@pytest.mark.parametrize("local_slice", [False, True])
+def test_decode_past_a_local_window_matches_jax(local_slice):
+    """The reduced gemma2 with a local window of 4 (``window_pattern=(4,
+    0)``), with and without ``local_decode_slice``: 14 decode steps of a
+    batch of 2 into a 16-row cache, so the local layers decode 10
+    positions past their window; logits within LOGIT_TOL of the JAX
+    model's at every step."""
+    jcfg, tcfg = cfgs("gemma2-9b", window_pattern=(4, 0),
+                      local_decode_slice=local_slice)
+    jm = jbuild_model(jcfg)
+    params = jm.init(jax.random.PRNGKey(0))
+    tm = params_from_numpy(tcfg, jax.tree.map(np.asarray, params),
+                           device="cpu")
+    assert [layer.kind for layer in tm.layers][:2] == \
+        ["attn_local", "attn_global"]
+    toks = np.random.default_rng(14).integers(0, tcfg.vocab_size, (2, 14)) \
+        .astype(np.int32)
+    jdec = jax.jit(jm.decode_step)
+    jc, tc = jm.init_cache(2, 16), tm.init_cache(2, 16)
+    for pos in range(14):
+        jl, jc = jdec(params, jnp.asarray(toks[:, pos:pos + 1]), jc, pos)
+        tl, tc = tm.decode_step(t(toks[:, pos:pos + 1]), tc, pos)
+        close(tl, jl, LOGIT_TOL)
+
+
 def test_embeds_path_matches_jax():
     """The VLM stub path: embeddings in, M-RoPE positions given."""
     jm, params, tm, cfg = models("qwen2-vl-2b")

@@ -383,8 +383,7 @@ def test_sketch_update_matches_jax(algo):
 
 
 def test_core_exports_match_jax():
-    assert sorted(tcore.__all__) == sorted(
-        set(jcore.__all__) - {"batched_frugal2u_update"})
+    assert sorted(tcore.__all__) == sorted(jcore.__all__)
     for name in tcore.__all__:
         assert getattr(tcore, name) is not None
 

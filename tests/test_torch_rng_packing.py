@@ -131,3 +131,56 @@ def test_frugal2u_pack_roundtrip_matches():
     for a, b in zip(back, (m, step, sign)):
         np.testing.assert_array_equal(a.numpy().view(np.int32),
                                       b.view(np.int32))
+
+
+# ------------------------------------------------------------- threefry
+def _keys(n, seed):
+    rng = np.random.default_rng(seed)
+    edge = [[0, 0], [0, 1], [2 ** 32 - 1, 2 ** 32 - 1], [2 ** 31, 0],
+            [0, 2 ** 31 - 1]]
+    return np.concatenate([np.asarray(edge, np.uint32),
+                           rng.integers(0, 2 ** 32, (n, 2), dtype=np.uint64)
+                           .astype(np.uint32)])
+
+
+@pytest.mark.parametrize("seed", [0, 1, -1, 5, -5, 2 ** 31 - 1, -2 ** 31,
+                                  987654])
+def test_prng_key_matches(seed):
+    np.testing.assert_array_equal(trng.prng_key(seed),
+                                  np.asarray(jax.random.PRNGKey(seed)))
+    with pytest.raises(ValueError, match="int32"):
+        trng.prng_key(2 ** 31)
+
+
+@pytest.mark.parametrize("num", [1, 2, 3, 8])
+def test_split_matches_jax_random(num):
+    """threefry2x32 split under jax_threefry_partitionable (JAX's default)
+    on 69 keys, edge words included: every child's words equal."""
+    assert jax.config.jax_threefry_partitionable
+    for k in _keys(64, num):
+        np.testing.assert_array_equal(
+            trng.split(k, num), np.asarray(jax.random.split(k, num)))
+
+
+def test_fold_in_matches_jax_random():
+    rng = np.random.default_rng(7)
+    data = [0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1] + \
+        rng.integers(0, 2 ** 32, 20).tolist()
+    for k in _keys(16, 3):
+        for d in data:
+            np.testing.assert_array_equal(
+                trng.fold_in(k, d), np.asarray(jax.random.fold_in(k, d)))
+
+
+def test_split_chain_drives_tick_uniforms_as_jax():
+    """The training step's key chain: split the state key every step and
+    draw the clip's uniforms from the second child, 50 steps."""
+    jkey = jax.random.PRNGKey(3)
+    tkey = trng.prng_key(3)
+    for _ in range(50):
+        jkey, jsub = jax.random.split(jkey)
+        tkey, tsub = trng.split(tkey)
+        np.testing.assert_array_equal(tkey, np.asarray(jkey))
+        np.testing.assert_array_equal(
+            trng.tick_uniforms(tsub, 7, device="cpu").numpy().view(np.int32),
+            np.asarray(jrng.tick_uniforms(jsub, 7)).view(np.int32))
