@@ -205,6 +205,34 @@ each or more:
      launch/train.py on the card killed at step 30 of 60 (exit 42) and
      restarted: resumed from step 30, finished at 60.
 
+ 15. the MoE and MLA families (repro_torch.models.layers.moe / mla, the
+     blocks' moe / mla / mla_moe kinds, deepseek's dense prefix, the
+     expert-load monitor's real groups): (a) the golden file's narrowed
+     olmoe-1b-7b and deepseek-v2-lite-16b (the JAX package's TrainStates,
+     moe/* keys) on the card: a forward's expert loads and drop fractions
+     bit for bit (the routing), the engine under the fake clock (tokens,
+     first step logits within 1e-4, summary and SLO state bit for bit),
+     four train steps (losses within 1e-4 relative, the expert-load fleet
+     bit for bit after each); (b) deepseek-v2-lite-16b at full width (27
+     layers, d_model 2048, MLA with kv_lora 512, qk 128 + 64, v 128; 64
+     experts top 6 plus 2 shared of d_ff 1408; a dense layer 0 of d_ff
+     10,944; vocab 102,400; 15.7 B float32 parameters, 62.8 GB, from a
+     seeded generator on the card after the earlier phases' memory is
+     released and the free memory checked; bf16 activations) served as
+     phase 13 (b) serves yi-6b: 4 slots x 512, 10^6 routes, 16 requests,
+     one B3 launch per step, SLO state vs a CPU replay, the decode path vs
+     forward at capacity factor 16.0 (no drops, as tests/test_arch_smoke.py
+     holds JAX) within 3e-2 x max|logit|, ms per step, tokens/s, TTFT, peak
+     memory, the byte bound's share, a traced second engine; (c)
+     olmoe-1b-7b at full width (16 layers, 6.9 B parameters), 4 requests,
+     the same checks, no trace; (d) olmoe at full width with its depth cut
+     to 4 layers (1.88 B parameters, about 30 GB of AdamW state; reduced:
+     all 16 would need 110.7 GB) trained by Trainer.run for 20 steps (AdamW,
+     clip and monitors on, 8 x 64 tokens): the loss falling, the aux loss
+     positive, the expert-load fleet's 4 x 64 = 256 lanes positive,
+     load_imbalance, ms per step against its bound. (b) and (c) are the
+     main path: B3 is counted from 0 around each run.
+
 frugal_update_auto launches B1 at the roofline autotuner's block size
 (repro_torch.roofline.autotune: 256 at the shapes of phases 5 and 9,
 fewer threads at phase 10's). The last line is {"ok": true, "device":
@@ -3134,6 +3162,12 @@ SERVE_TRACE_STEPS = 8
 # layers: |difference| at most this times max |logit|.
 SERVE_FORWARD_TOL = 3e-2
 SERVE_GOLDEN_LOGIT_TOL = 1e-4
+SERVE_FULL = {"layers": 32, "d_model": 4096, "num_heads": 32,
+              "num_kv_heads": 4, "d_ff": 11008, "vocab_size": 64000}
+# Free device memory a full-width engine needs beyond its float32 weights:
+# per-call bf16 weight casts (one MoE layer's experts: 1.1 GB at deepseek),
+# the caches and the allocator's slack.
+MEM_HEADROOM = 4 * 2 ** 30
 
 
 def serve_golden(torch, gm):
@@ -3183,13 +3217,13 @@ def serve_golden(torch, gm):
         summary_and_slo_state="bit-identical to the JAX engine's")
 
 
-def serve_traffic(rng, vocab, names):
-    """SERVE_REQUESTS requests: prompts of 8-32 tokens, 16-32 new tokens,
-    routes Zipf(1.2) over ``names``."""
+def serve_traffic(rng, vocab, names, n):
+    """``n`` requests: prompts of 8-32 tokens, 16-32 new tokens, routes
+    Zipf(1.2) over ``names``."""
     from repro_torch.serve import Request
 
     out = []
-    for rid in range(SERVE_REQUESTS):
+    for rid in range(n):
         n = int(rng.integers(8, 33))
         out.append(Request(rid=rid, prompt=rng.integers(0, vocab, n).tolist(),
                            max_new_tokens=int(rng.integers(16, 33)),
@@ -3281,10 +3315,10 @@ def serve_replay_on_cpu(torch, eng, names):
     return plain
 
 
-def serve_forward_check(torch, model, req):
+def serve_forward_check(torch, model, req, check=True):
     """The decode path (a fresh batch-1 cache fed the request's tokens one
     by one) against forward(..., last_only=True) over the same tokens, at
-    the last position."""
+    the last position; held to SERVE_FORWARD_TOL if ``check``."""
     seq = req.prompt + req.output[:-1]
     toks = torch.tensor([seq], dtype=torch.int32, device="cuda")
     cache = model.init_cache(1, SERVE_MAX_LEN)
@@ -3294,18 +3328,18 @@ def serve_forward_check(torch, model, req):
         fwd, _ = model(toks, last_only=True)
     scale = float(fwd.abs().max())
     err = float((dec - fwd).abs().max())
-    if not err <= SERVE_FORWARD_TOL * scale:
-        fail(f"serving (b): the decode path's logits differ from forward's "
-             f"by {err} (max |logit| {scale})")
+    if check and not err <= SERVE_FORWARD_TOL * scale:
+        fail(f"serving: {model.cfg.name}'s decode path's logits differ from "
+             f"forward's by {err} (max |logit| {scale})")
     same_top = int(dec[0, 0].argmax()) == int(fwd[0, 0].argmax())
     return len(seq), err, scale, same_top
 
 
-def serve_trace(torch, model, names, rng, card):
+def serve_trace(torch, model, names, rng, card, tag="serve"):
     """A second engine of the same shape (10^6 routes registered): its
     admission step (SERVE_SLOTS prompts of 16 tokens prefilled, one decode
     call each, then one step's decode) traced, then SERVE_TRACE_STEPS
-    decode-only steps traced."""
+    decode-only steps traced. Result lines start with ``tag``."""
     from repro_torch.serve import Request, ServeEngine
 
     eng = ServeEngine(model, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
@@ -3326,13 +3360,13 @@ def serve_trace(torch, model, names, rng, card):
     calls = SERVE_SLOTS * prompt + 1
     adm_ms, adm_names, adm_busy = device_trace(torch, admission)
     if adm_names is not None:
-        say("serve", check="trace", of="admission step", decode_calls=calls,
+        say(tag, check="trace", of="admission step", decode_calls=calls,
             window_ms=f"{adm_ms:.3f}", ms_per_call=f"{adm_ms / calls:.4f}",
             device_busy_ms_per_call=f"{adm_busy / calls:.4f}",
             device_busy_share=f"{adm_busy / adm_ms:.4f}", card=card)
         for name, (n, ms) in sorted(adm_names.items(),
                                     key=lambda kv: -kv[1][1])[:4]:
-            say("serve", check="trace", of="admission step",
+            say(tag, check="trace", of="admission step",
                 activity=name[:90], calls=n,
                 ms_per_call=f"{ms / calls:.4f}")
     eng.step()
@@ -3348,13 +3382,13 @@ def serve_trace(torch, model, names, rng, card):
 
     window_ms, names_ms, busy_ms = device_trace(torch, window)
     if names_ms is None:
-        say("serve", check="trace", steps=SERVE_TRACE_STEPS,
+        say(tag, check="trace", steps=SERVE_TRACE_STEPS,
             window_ms=f"{window_ms:.3f}", device_busy_share="null",
             note="no device trace: not measured", card=card)
         return None
     b3_ms = sum(ms for n, (_, ms) in names_ms.items()
                 if "frugal_scatter" in n)
-    say("serve", check="trace", steps=SERVE_TRACE_STEPS,
+    say(tag, check="trace", steps=SERVE_TRACE_STEPS,
         window_ms=f"{window_ms:.3f}", device_busy_ms=f"{busy_ms:.3f}",
         device_busy_share=f"{busy_ms / window_ms:.4f}",
         b3_ms_per_flush=f"{b3_ms / SERVE_TRACE_STEPS:.5f}",
@@ -3362,17 +3396,41 @@ def serve_trace(torch, model, names, rng, card):
              "call and one SLO flush", card=card)
     for name, (calls, ms) in sorted(names_ms.items(),
                                     key=lambda kv: -kv[1][1])[:8]:
-        say("serve", check="trace", activity=name[:90], calls=calls,
+        say(tag, check="trace", activity=name[:90], calls=calls,
             ms_per_step=f"{ms / SERVE_TRACE_STEPS:.4f}",
             share=f"{ms / window_ms:.4f}")
     return b3_ms / SERVE_TRACE_STEPS
 
 
-def phase_serving(torch, gm, card):
-    """Phase 13: (a) the golden engine; (b) yi-6b at full width with
-    random weights from a seeded generator, fed SERVE_REQUESTS requests
-    over 10^6 registered routes. Returns the run kernel's launches on the
-    main path (one per flush)."""
+@contextlib.contextmanager
+def config_override(model, **changes):
+    """``model`` (and each layer) run under its config with ``changes``
+    (a MoE capacity factor with no drops, float32 activations): the same
+    weights, nothing copied."""
+    old = model.cfg
+    cfg = dataclasses.replace(old, **changes)
+    for m in (model, *model.layers):
+        m.cfg = cfg
+    try:
+        yield model
+    finally:
+        for m in (model, *model.layers):
+            m.cfg = old
+
+
+def serve_full(torch, arch, expect, n_requests, card, tag, check,
+               moe_forward=False, trace=True):
+    """``arch`` at full width (``expect``: its layer count and config
+    widths), float32 parameters from a seeded generator on the card,
+    ServeEngine(SERVE_SLOTS, SERVE_MAX_LEN) with SERVE_ROUTES routes
+    registered, fed ``n_requests`` requests; the checks and numbers of
+    phase 13 (b), a traced second engine if ``trace``. The decode path is
+    held against forward in the config's activations, or for a MoE
+    config (``moe_forward``) at capacity factor MOE_FORWARD_CF in float32
+    activations, with the bf16 difference reported beside it. Earlier
+    phases' memory is released first and the card's free memory checked
+    against the weights. Returns the run kernel's launches on the run
+    (one per flush)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import frugal_update as fk
@@ -3380,17 +3438,17 @@ def phase_serving(torch, gm, card):
     from repro_torch.roofline import hw_for
     from repro_torch.serve import SLOFleet, ServeEngine
 
-    phase_t0 = time.perf_counter()
-    if torch.backends.cuda.matmul.allow_tf32 \
-            or torch.get_float32_matmul_precision() != "highest":
-        fail("serving: TF32 matmuls are on; the float32 golden check "
-             "needs them off")
-    serve_golden(torch, gm)
-
+    t_start = time.perf_counter()
+    gc.collect()            # earlier engines sit in reference cycles
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config("yi-6b")
+    cfg = get_config(arch)
+    free, total = torch.cuda.mem_get_info()
+    need = 4 * cfg.n_params()
+    if free < need + MEM_HEADROOM:
+        fail(f"{tag} ({check}): {free} bytes free of {total}, {arch}'s "
+             f"float32 weights need {need} and {MEM_HEADROOM} to run")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SERVE_SEED)
     t0 = time.perf_counter()
@@ -3400,10 +3458,12 @@ def phase_serving(torch, gm, card):
     n_params = sum(p.numel() for p in model.parameters())
     param_bytes = sum(p.numel() * p.element_size()
                       for p in model.parameters())
-    if (len(model.layers), cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-            cfg.d_ff, cfg.vocab_size) != (32, 4096, 32, 4, 11008, 64000) \
+    widths = {k: v for k, v in expect.items() if k != "layers"}
+    if len(model.layers) != expect["layers"] \
+            or any(getattr(cfg, k) != v for k, v in widths.items()) \
             or next(model.parameters()).dtype != torch.float32:
-        fail("serving (b): the model is not yi-6b at full width in float32")
+        fail(f"{tag} ({check}): the model is not {arch} at full width in "
+             "float32")
     eng = ServeEngine(model, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
     names = [f"route-{i}" for i in range(SERVE_ROUTES)]
     t0 = time.perf_counter()
@@ -3412,20 +3472,19 @@ def phase_serving(torch, gm, card):
     register_s = time.perf_counter() - t0
     lanes = eng.slo._cap_routes * eng.slo.n_metrics
     if lanes <= SLOFleet.DENSE_LANES_MAX:
-        fail(f"serving (b): {lanes} lanes take the dense flush branch")
+        fail(f"{tag} ({check}): {lanes} lanes take the dense flush branch")
     cache_bytes = sum(c.numel() * c.element_size()
                       for layer in eng.caches for c in layer.values())
-    say("serve", check="b", arch="yi-6b", layers=len(model.layers),
-        d_model=cfg.d_model, heads=f"{cfg.num_heads}/{cfg.num_kv_heads}",
-        d_ff=cfg.d_ff, vocab=cfg.vocab_size, params=n_params,
-        param_bytes=param_bytes, param_dtype="float32",
+    say(tag, check=check, arch=arch, layers=len(model.layers), **widths,
+        params=n_params, param_bytes=param_bytes, param_dtype="float32",
         activations=cfg.dtype, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
-        kv_cache_bytes=cache_bytes, build_s=f"{build_s:.3f}",
-        routes=SERVE_ROUTES, slo_lanes=lanes,
+        cache_keys=",".join(sorted(eng.caches[-1])),
+        kv_cache_bytes=cache_bytes, free_before_bytes=free,
+        build_s=f"{build_s:.3f}", routes=SERVE_ROUTES, slo_lanes=lanes,
         register_routes_s=f"{register_s:.3f}")
 
     rng = np.random.default_rng(SERVE_SEED)
-    reqs = serve_traffic(rng, cfg.vocab_size, names)
+    reqs = serve_traffic(rng, cfg.vocab_size, names, n_requests)
     instrument_engine(torch, eng)
     step_host_ms, admitted = [], []
     gc_ms = collections.Counter()
@@ -3456,20 +3515,18 @@ def phase_serving(torch, gm, card):
     peak = torch.cuda.max_memory_allocated()
 
     done = sorted(eng.done, key=lambda r: r.rid)
-    if [r.rid for r in done] != list(range(SERVE_REQUESTS)):
-        fail(f"serving (b): served {[r.rid for r in done]}")
+    if [r.rid for r in done] != list(range(n_requests)):
+        fail(f"{tag} ({check}): served {[r.rid for r in done]}")
     for r in done:
         if len(r.output) != r.max_new_tokens or not all(
                 0 <= t < cfg.vocab_size for t in r.output):
-            fail(f"serving (b): request {r.rid} got {len(r.output)} tokens "
-                 f"of {r.max_new_tokens}")
+            fail(f"{tag} ({check}): request {r.rid} got {len(r.output)} "
+                 f"tokens of {r.max_new_tokens}")
     flushes = len(eng.flush_at)
     if launches == 0 or launches != flushes \
             or flushes != len(step_host_ms):
-        fail(f"serving (b): {launches} run kernel launches for {flushes} "
-             f"flushes with events in {len(step_host_ms)} steps")
-    serve_replay_on_cpu(torch, eng, names)
-    n_seq, err, scale, same_top = serve_forward_check(torch, model, done[0])
+        fail(f"{tag} ({check}): {launches} run kernel launches for "
+             f"{flushes} flushes with events in {len(step_host_ms)} steps")
 
     decode_ms = [a.elapsed_time(b) for a, b in eng.decode_events]
     flush_ms = [a.elapsed_time(b) for a, b in eng.flush_events]
@@ -3479,17 +3536,18 @@ def phase_serving(torch, gm, card):
     hw = hw_for("gpu-h100")
     bound_ms = (param_bytes + cache_bytes) / hw.hbm_bw * 1e3
     step_ms = statistics.median(decode_ms)
-    say("serve", check="b", served=len(done), tokens=tokens,
+    say(tag, check=check, served=len(done), tokens=tokens,
         prompt_tokens=sum(len(r.prompt) for r in done), steps=len(
             step_host_ms), steps_with_admission=sum(admitted),
         run_s=f"{run_s:.3f}", decode_tokens_per_s=f"{tokens / run_s:.2f}",
         ttft_ms_p50=f"{pct(ttft, 50):.2f}", ttft_ms_p99=f"{pct(ttft, 99):.2f}",
         card=card)
-    say("serve", check="b", step_decode_ms_device_median=f"{step_ms:.4f}",
+    say(tag, check=check, step_decode_ms_device_median=f"{step_ms:.4f}",
         step_decode_ms_device_p10_p90=f"{pct(decode_ms, 10):.4f},"
         f"{pct(decode_ms, 90):.4f}",
         engine_dt_ms_median=f"{statistics.median(eng.dispatch_ms):.4f}",
-        step_host_ms_median_no_admission=f"{statistics.median(pure):.4f}",
+        step_host_ms_median_no_admission=f"{statistics.median(pure):.4f}"
+        if pure else "null",
         prefill_call_host_ms_p10_p50_p90=",".join(
             f"{pct(eng.prefill_host_ms, q):.4f}" for q in (10, 50, 90)),
         prefill_calls=len(eng.prefill_host_ms),
@@ -3497,29 +3555,69 @@ def phase_serving(torch, gm, card):
         note="device: CUDA events around the step's decode call; engine "
              "dt_ms: the engine's host clock (dispatch, no sync); host: "
              "perf_counter around eng.step() (decode, logits copy, flush)")
-    say("serve", check="b", step_bytes=param_bytes + cache_bytes,
+    say(tag, check=check, step_bytes=param_bytes + cache_bytes,
         step_bound_ms=f"{bound_ms:.4f}",
         step_bound_share=f"{bound_ms / step_ms:.4f}",
-        bound_note=f"float32 weights + KV cache read once over the "
+        bound_note=f"float32 weights + cache read once over the "
                    f"gpu-h100 HwSpec's {hw.hbm_bw / 1e12:.2f} TB/s",
         max_memory_allocated_bytes=peak, card=card)
-    say("serve", check="b", b3_launches=launches, flushes=flushes,
+    serve_replay_on_cpu(torch, eng, names)
+    say(tag, check=check, b3_launches=launches, flushes=flushes,
         flush_device_ms_median=f"{statistics.median(flush_ms):.4f}",
         flush_host_ms_median=f"{statistics.median(eng.flush_host_ms):.4f}",
         slo_state="all planes and clocks bit-identical to a CPU SLOFleet "
                   "replaying the engine's observations and flushes",
         note="flush device ms: CUDA events around SLOFleet.flush (event "
              "copies and one B3 launch)")
-    say("serve", check="b", forward_vs_decode_tokens=n_seq,
+    if moe_forward:
+        # In bf16 the two paths round differently and flip near-tied
+        # router choices, a whole expert's output for a token: the bf16
+        # difference is reported, the float32 one held to the bound.
+        with config_override(model, capacity_factor=MOE_FORWARD_CF):
+            _, bf16_err, bf16_scale, bf16_top = serve_forward_check(
+                torch, model, done[0], check=False)
+        with config_override(model, capacity_factor=MOE_FORWARD_CF,
+                             dtype="float32"):
+            n_seq, err, scale, same_top = serve_forward_check(
+                torch, model, done[0])
+        say(tag, check=check, forward_vs_decode_bf16_max_abs_err=f"{bf16_err:.4e}",
+            bf16_max_abs_logit=f"{bf16_scale:.4f}",
+            bf16_share_of_max_logit=f"{bf16_err / bf16_scale:.4f}",
+            bf16_same_argmax=bf16_top, note="information, not checked")
+    else:
+        n_seq, err, scale, same_top = serve_forward_check(torch, model,
+                                                          done[0])
+    say(tag, check=check, forward_vs_decode_tokens=n_seq,
+        activations="float32" if moe_forward else cfg.dtype,
         max_abs_err=f"{err:.4e}", max_abs_logit=f"{scale:.4f}",
         tolerance=f"{SERVE_FORWARD_TOL} x max|logit|",
+        forward_capacity_factor=MOE_FORWARD_CF if moe_forward else "null",
         same_argmax=same_top)
-    b3_trace_ms = serve_trace(torch, model, names, rng, card)
+    b3_trace_ms = serve_trace(torch, model, names, rng, card, tag) \
+        if trace else None
     del eng, model
+    gc.collect()
     torch.cuda.empty_cache()
-    say("serve", phase_s=f"{time.perf_counter() - phase_t0:.1f}",
+    say(tag, check=check, part_s=f"{time.perf_counter() - t_start:.1f}",
         b3_ms_per_flush_traced="null" if b3_trace_ms is None
         else f"{b3_trace_ms:.5f}", card=card)
+    return launches
+
+
+def phase_serving(torch, gm, card):
+    """Phase 13: (a) the golden engine; (b) yi-6b at full width with
+    random weights from a seeded generator, fed SERVE_REQUESTS requests
+    over 10^6 registered routes. Returns the run kernel's launches on the
+    main path (one per flush)."""
+    phase_t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        fail("serving: TF32 matmuls are on; the float32 golden check "
+             "needs them off")
+    serve_golden(torch, gm)
+    launches = serve_full(torch, "yi-6b", SERVE_FULL, SERVE_REQUESTS, card,
+                          "serve", "b")
+    say("serve", phase_s=f"{time.perf_counter() - phase_t0:.1f}", card=card)
     return launches
 
 
@@ -3670,24 +3768,32 @@ def train_activity_kind(name: str) -> str:
 
 
 def train_bound(model, cfg, tokens):
-    """(bytes, operations, bound ms, which term) of one AdamW training
-    step: the step's inputs and outputs moved once (float32 params and
-    both moments read and written, 24 B a parameter), and the matmuls'
-    6 x params x tokens operations: bf16 at the gpu-h100 HwSpec's peak,
-    the float32 LM head (TF32 off) at H100_F32_FLOPS."""
+    """(bytes, operations, bound ms, which term, bytes ms, operations ms)
+    of one AdamW training step: the step's inputs and outputs moved once
+    (float32 params and both moments read and written, 24 B a
+    parameter), and 6 x tokens x the matmul parameters a token uses (no
+    embedding gather, no norms; a MoE layer's experts at top-k of E):
+    bf16 at the gpu-h100 HwSpec's peak, the float32 LM head (TF32 off;
+    the embedding when tied) at H100_F32_FLOPS."""
     from repro_torch.roofline import hw_for
 
     hw = hw_for("gpu-h100")
-    n = sum(p.numel() for p in model.parameters())
-    head = cfg.vocab_size * cfg.d_model
-    norms = sum(p.numel() for name, p in model.named_parameters()
-                if "norm" in name)
-    nbytes = 24 * n
-    ops_bf16 = 6 * (n - head - norms) * tokens
-    ops_f32 = 6 * head * tokens
-    bytes_ms = nbytes / hw.hbm_bw * 1e3
+    head_name = "embed" if cfg.tie_embeddings else "lm_head"
+    n = dense = expert = head = 0
+    for name, p in model.named_parameters():
+        n += p.numel()
+        if name.startswith(head_name):
+            head += p.numel()
+        elif ".moe.w_" in name:
+            expert += p.numel()
+        elif not (name.startswith("embed") or "norm" in name):
+            dense += p.numel()
+    if expert:
+        dense += expert * cfg.moe_topk // cfg.moe_experts
+    ops_bf16, ops_f32 = 6 * dense * tokens, 6 * head * tokens
+    bytes_ms = 24 * n / hw.hbm_bw * 1e3
     ops_ms = (ops_bf16 / hw.peak_flops + ops_f32 / H100_F32_FLOPS) * 1e3
-    return nbytes, ops_bf16 + ops_f32, max(bytes_ms, ops_ms), \
+    return 24 * n, ops_bf16 + ops_f32, max(bytes_ms, ops_ms), \
         "bytes" if bytes_ms >= ops_ms else "operations", bytes_ms, ops_ms
 
 
@@ -3912,6 +4018,290 @@ def phase_training(torch, gm, card):
     say("train", phase_s=f"{time.perf_counter() - t0:.1f}", card=card)
 
 
+# --------------------------------------------------------------- phase 15
+MOE_SERVE = (("deepseek-v2-lite-16b", "b", 16), ("olmoe-1b-7b", "c", 4))
+MOE_FULL = {
+    "deepseek-v2-lite-16b": {
+        "layers": 27, "d_model": 2048, "num_heads": 16, "kv_lora_rank": 512,
+        "qk_nope_dim": 128, "qk_rope_dim": 64, "v_head_dim": 128,
+        "moe_experts": 64, "moe_topk": 6, "moe_shared_experts": 2,
+        "moe_d_ff": 1408, "moe_first_dense": 1, "first_dense_d_ff": 10944,
+        "vocab_size": 102400},
+    "olmoe-1b-7b": {
+        "layers": 16, "d_model": 2048, "num_heads": 16, "num_kv_heads": 16,
+        "head_dim": 128, "moe_experts": 64, "moe_topk": 8, "moe_d_ff": 1024,
+        "vocab_size": 50304}}
+# The decode path against forward at a capacity factor where no token
+# drops, as tests/test_arch_smoke.py holds the JAX package: one-token
+# decode never drops, a batched forward at 1.25 does.
+MOE_FORWARD_CF = 16.0
+MOE_GOLDEN_LOSS_REL = 1e-4          # phase 14's bound on later losses
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = "olmoe-1b-7b", 4, 20
+MOE_TRAIN_LR = (1e-3, 10, MOE_TRAIN_STEPS)   # launch/train.py's schedule
+
+
+def moe_golden(torch, gm, card):
+    """(a) The golden file's narrowed olmoe and deepseek (the JAX
+    package's TrainStates) on the card: a forward's expert loads and drop
+    fractions bit for bit (the routing), the engine under the fake clock
+    (tokens, first step logits within SERVE_GOLDEN_LOGIT_TOL, summary and
+    SLO state bit for bit), then gm.MOE_TRAIN_STEPS train steps (losses
+    within MOE_GOLDEN_LOSS_REL, the expert-load fleet bit for bit)."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models.convert import train_state_from_numpy
+    from repro_torch.optim import Optimizer, warmup_cosine
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.train import make_train_step
+
+    data = np.load(GOLDEN)
+    for arch in gm.MOE_ARCHS:
+        t0 = time.perf_counter()
+        key = f"moe/{arch}"
+        cfg = gm.moe_config(reduce_for_smoke(get_config(arch)))
+        st = train_state_from_numpy(cfg, gm.train_state_tree(
+            data, f"{key}/init"), device="cuda")
+        if st.params.device.type != "cuda" \
+                or st.monitors.n_moe_groups != 2 * cfg.moe_experts:
+            fail(f"moe (a): {arch} carried to {st.params.device} with "
+                 f"{st.monitors.n_moe_groups} expert-load lanes")
+        batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+                   for b in gm.moe_train_batches(data, arch)]
+        with torch.no_grad():
+            _, stats = st.params(batches[0]["tokens"])
+        for name in ("expert_load", "drop_fraction"):
+            if not same_bits(torch, stats["stack"][0][name].cpu(),
+                             torch.from_numpy(data[f"{key}/route/{name}"])):
+                fail(f"moe (a): {arch}'s {name} differs from the JAX "
+                     "package's: the routing differs")
+        real_time = engine_mod.time
+        engine_mod.time = gm.FakeClock()
+        try:
+            eng = ServeEngine(st.params, batch_slots=gm.SERVE_SLOTS,
+                              max_len=gm.SERVE_MAX_LEN)
+            got = gm.serve_engine_results(eng, Request)
+        finally:
+            engine_mod.time = real_time
+        for k in ("serve/outputs", "serve/output_lengths"):
+            if not np.array_equal(got[k], data[f"{key}/{k}"]):
+                fail(f"moe (a): {arch}'s {k} {got[k].tolist()} != the JAX "
+                     f"engine's {data[f'{key}/{k}'].tolist()}")
+        err = float(np.abs(got["serve/first_step_logits"]
+                           - data[f"{key}/serve/first_step_logits"]).max())
+        if not err <= SERVE_GOLDEN_LOGIT_TOL:
+            fail(f"moe (a): {arch}'s first step logits differ by {err}")
+        for k in ("serve/summary", "serve/slo/m", "serve/slo/step",
+                  "serve/slo/sign", "serve/slo/ticks"):
+            if not np.array_equal(got[k].view(np.int32),
+                                  data[f"{key}/{k}"].view(np.int32)):
+                fail(f"moe (a): {arch}'s {k} differs from the JAX engine's")
+        step = make_train_step(st.params, Optimizer(
+            kind="adamw", lr_fn=warmup_cosine(*gm.TRAIN_LR)))
+        want = data[f"{key}/train/loss"]
+        rel = []
+        for i, b in enumerate(batches):
+            st, met = step(st, b)
+            rel.append(abs(float(met["loss"]) - want[i]) / abs(want[i]))
+            fleet = st.monitors.expert_load_q99
+            if fleet.device.type != "cuda":
+                fail(f"moe (a): the expert-load fleet runs on {fleet.device}")
+            for f in ("m", "step", "sign"):
+                if not same_bits(torch, getattr(fleet.state, f).cpu(),
+                                 torch.from_numpy(
+                                     data[f"{key}/train/{f}"][i])):
+                    fail(f"moe (a): {arch}'s expert-load fleet {f} differs "
+                         f"at step {i}")
+            if [int(x) for x in fleet.cursor] != \
+                    data[f"{key}/train/cursor"][i].tolist():
+                fail(f"moe (a): {arch}'s expert-load cursor differs")
+        if not max(rel) <= MOE_GOLDEN_LOSS_REL:
+            fail(f"moe (a): {arch}'s losses differ from the JAX package's by "
+                 f"{max(rel)} relative")
+        say("moe", check="a", arch=f"{arch} narrowed (d_model {cfg.d_model},"
+            f" {cfg.num_layers} layers, {cfg.moe_experts} experts top "
+            f"{cfg.moe_topk}, float32)", routing="bit-identical",
+            tokens=int(data[f"{key}/serve/output_lengths"].sum()),
+            tokens_equal=True, first_step_logits_max_abs_err=f"{err:.3e}",
+            summary_and_slo_state="bit-identical to the JAX engine's",
+            train_steps=len(batches), loss_max_rel_err=f"{max(rel):.3e}",
+            expert_load_fleet=f"{fleet.num_groups} lanes bit-identical "
+                              "after every step",
+            part_s=f"{time.perf_counter() - t0:.1f}", card=card)
+
+
+def moe_train(torch, card):
+    """(d) olmoe at full width with its depth cut to MOE_TRAIN_LAYERS
+    layers (all 16 with AdamW would need 110.7 GB), float32 parameters
+    from a seeded generator, AdamW, quantile clip and monitors on,
+    SyntheticCorpus at TRAIN_BATCH x TRAIN_SEQ: Trainer.run for
+    MOE_TRAIN_STEPS steps; the loss falling, the aux loss positive, the
+    expert-load fleet's MOE_TRAIN_LAYERS x 64 lanes bit-identical to a
+    CPU fleet replaying the loads each step fed it (recorded on the
+    host), its q99s in [0, 1], load_imbalance. An expert that no token
+    chose in any step (a dead expert of a random router) keeps q99 0."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import rng as crng
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.models import build_model
+    from repro_torch.monitor import load_imbalance, monitor_summary
+    from repro_torch.monitor import registry
+    from repro_torch.optim import Optimizer, warmup_cosine
+    from repro_torch.train import create_train_state, make_train_step
+    from repro_torch.train import steps as steps_mod
+    from repro_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH),
+                              num_layers=MOE_TRAIN_LAYERS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TRAIN_SEED)
+    model = build_model(cfg, device="cuda", generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    widths = {k: v for k, v in MOE_FULL[MOE_TRAIN_ARCH].items()
+              if k != "layers"}
+    if len(model.layers) != MOE_TRAIN_LAYERS or any(
+            getattr(cfg, k) != v for k, v in widths.items()):
+        fail("moe (d): the model is not olmoe at full width")
+    opt = Optimizer(kind="adamw", lr_fn=warmup_cosine(*MOE_TRAIN_LR))
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=TRAIN_SEQ,
+                                        batch_size=TRAIN_BATCH,
+                                        seed=TRAIN_SEED))
+    example = next(corpus.iterate(prefetch=0, device="cuda"))
+    state = create_train_state(model, opt, crng.prng_key(TRAIN_SEED),
+                               example_batch=example)
+    lanes = MOE_TRAIN_LAYERS * cfg.moe_experts
+    if state.monitors.n_moe_groups != lanes \
+            or state.monitors.expert_load_q99.num_groups != lanes:
+        fail(f"moe (d): {state.monitors.n_moe_groups} expert-load groups, "
+             f"expected {lanes}")
+    step_fn = make_train_step(model, opt)
+    events = []
+
+    def timed_step(st, batch):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = step_fn(st, batch)
+        b.record()
+        events.append((a, b))
+        return out
+
+    fed, update = [], steps_mod.update_train_monitors
+
+    def update_recorded(mon, stats):
+        fed.append(registry._flatten_stats(stats)[2].cpu())
+        return update(mon, stats)
+
+    trainer = Trainer(model, opt, timed_step, corpus.iterate(device="cuda"),
+                      log_every=10, log_fn=lambda line: None)
+    steps_mod.update_train_monitors = update_recorded
+    try:
+        t_run = time.perf_counter()
+        state = trainer.run(state, MOE_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+    finally:
+        steps_mod.update_train_monitors = update
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.metrics_history
+    losses = [m["loss"] for m in hist]
+    if len(hist) != MOE_TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"moe (d): {len(hist)} steps, losses {losses}")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last5 < first5:
+        fail(f"moe (d): the loss did not fall ({first5} -> {last5})")
+    aux = [m["aux_loss"] for m in hist]
+    if not all(a > 0 for a in aux):
+        fail(f"moe (d): aux losses {aux}")
+    fleet = state.monitors.expert_load_q99
+    plain = registry.make_fleet(lanes, 0.99, registry.SEED_MOE,
+                                device="cpu")
+    for loads in fed:
+        plain = plain.tick_lanes(loads)
+    if len(fed) != MOE_TRAIN_STEPS or not all(
+            same_bits(torch, getattr(fleet.state, f).cpu(),
+                      getattr(plain.state, f)) for f in ("m", "step", "sign")):
+        fail(f"moe (d): the expert-load fleet differs from a CPU fleet fed "
+             f"the {len(fed)} recorded steps' loads")
+    q99 = monitor_summary(state.monitors)["expert_load_q99"]
+    imbalance = float(load_imbalance(q99, cfg.moe_experts))
+    q99 = q99.cpu().numpy()
+    never = int((torch.stack(fed) == 0).all(0).sum())
+    if q99.shape != (lanes,) or not (np.all((q99 >= 0) & (q99 <= 1))
+                                     and q99.max() > 0) \
+            or not (np.isfinite(imbalance) and imbalance >= 1.0):
+        fail(f"moe (d): expert-load q99s {q99.tolist()}, imbalance "
+             f"{imbalance}")
+    host_ms = [m["step_time_s"] * 1e3 for m in hist]
+    dev_ms = [a.elapsed_time(b) for a, b in events]
+    steady = host_ms[5:]
+    step_ms = statistics.median(steady)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    nbytes, nops, bound_ms, bound_by, bytes_ms, ops_ms = train_bound(
+        model, cfg, tokens)
+    say("moe", check="d", arch=f"{MOE_TRAIN_ARCH} full width, depth cut",
+        layers=MOE_TRAIN_LAYERS, reduced=f"num_layers 16 -> "
+        f"{MOE_TRAIN_LAYERS} (AdamW state of all 16: 110.7 GB)",
+        params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=MOE_TRAIN_STEPS, run_s=f"{run_s:.3f}", card=card)
+    say("moe", check="d", step_ms_host_median_steps_6_20=f"{step_ms:.3f}",
+        step_ms_host_p10_p90=f"{pct(steady, 10):.3f},{pct(steady, 90):.3f}",
+        step_ms_host_first=f"{host_ms[0]:.3f}",
+        step_ms_device_median_steps_6_20=f"{statistics.median(dev_ms[5:]):.3f}",
+        tokens_per_s=f"{tokens / step_ms * 1e3:.1f}",
+        max_memory_allocated_bytes=peak, held_before_bytes=held,
+        peak_of_training_bytes=peak - held, step_bytes=nbytes,
+        step_operations=nops, bytes_bound_ms=f"{bytes_ms:.3f}",
+        operations_bound_ms=f"{ops_ms:.3f}", step_bound_ms=f"{bound_ms:.3f}",
+        bound_by=bound_by, step_bound_share=f"{bound_ms / step_ms:.4f}")
+    say("moe", check="d", first_loss=f"{losses[0]:.4f}",
+        last_loss=f"{losses[-1]:.4f}", mean_first5=f"{first5:.4f}",
+        mean_last5=f"{last5:.4f}", aux_loss_first_last=f"{aux[0]:.5f},"
+        f"{aux[-1]:.5f}", qclip_warmup=state.qclip.warmup,
+        expert_load_lanes=lanes, expert_load_fleet="bit-identical to a CPU "
+        "fleet replaying the recorded loads",
+        expert_load_q99_min_max=f"{q99.min():.5f},{q99.max():.5f}",
+        lanes_q99_zero=int((q99 == 0).sum()), lanes_never_loaded=never,
+        load_imbalance=f"{imbalance:.4f}",
+        stragglers=sum(m["straggler"] for m in hist),
+        part_s=f"{time.perf_counter() - t0:.1f}")
+    del state, model, trainer, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe(torch, gm, card):
+    """Phase 15: (a) the golden MoE and MLA entries; (b) deepseek-v2-lite
+    and (c) olmoe at full width through the engine; (d) olmoe's depth cut
+    trained. Returns the run kernel's launches on (b) and (c)."""
+    from repro_torch.kernels import frugal_update as fk
+
+    t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        fail("moe: TF32 matmuls are on; the float32 golden check needs "
+             "them off")
+    moe_golden(torch, gm, card)
+    launches = 0
+    for arch, check, n in MOE_SERVE:
+        launches += serve_full(torch, arch, MOE_FULL[arch], n, card, "moe",
+                               check, moe_forward=True, trace=check == "b")
+    counts = (fk.launch_count, fk.scatter_launch_count)
+    moe_train(torch, card)
+    if (fk.launch_count, fk.scatter_launch_count) != counts:
+        fail("moe (d): the training path launched a frugal kernel")
+    say("moe", phase_s=f"{time.perf_counter() - t0:.1f}", card=card)
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -3956,6 +4346,7 @@ def main() -> None:
                        if e["name"].startswith("frugal_program_scatter[SLO"))
     flush_entry["launches"] += phase_serving(torch, gm, card)
     phase_training(torch, gm, card)
+    flush_entry["launches"] += phase_moe(torch, gm, card)
     torch.cuda.synchronize()
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("JAX or the JAX package was imported")

@@ -17,13 +17,14 @@ Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (``configs.platform.resolve_device``). The roofline layer
 (``roofline``) prices the dense kernel on the detected card and chooses
 its block size; ``configs`` and ``models.config`` hold the published model
-configurations it prices. ``models`` runs the attention-only decoders of
-the model zoo, which ``serve.ServeEngine`` serves (``launch.serve`` is its
-driver), with each route's SLO quantiles in an ``SLOFleet``, and trains
-them (``train``, ``optim``, ``monitor``; ``launch.train`` is the driver)
-with the paper's sketch inside the step: a Frugal-2U q95 of each block's
-gradient norm clips the gradients, and frugal fleets track activation
-statistics.
+configurations it prices. ``models`` runs the attention-only, MoE and
+MLA decoders of the model zoo, which ``serve.ServeEngine`` serves
+(``launch.serve`` is its driver), with each route's SLO quantiles in an
+``SLOFleet``, and trains them (``train``, ``optim``, ``monitor``;
+``launch.train`` is the driver) with the paper's sketch inside the step:
+a Frugal-2U q95 of each block's gradient norm clips the gradients, and
+frugal fleets track activation statistics and each (layer, expert)'s
+load.
 """
 
 # The subpackages, entry point first (``from repro_torch import *`` imports

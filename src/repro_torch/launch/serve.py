@@ -4,6 +4,11 @@ prints the routes' SLO summary.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b --device cpu
+
+``--arch`` names any config of the attention-only, MoE (olmoe-1b-7b) and
+MLA (deepseek-v2-lite-16b) families.
 
 ``--device`` defaults to the card and raises where there is none.
 """

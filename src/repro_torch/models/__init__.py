@@ -1,11 +1,12 @@
 """The model zoo's attention-only decoders (yi-6b, gemma2-9b, granite-20b,
-minitron-4b, qwen2-vl-2b's text path) and the configurations of all ten
+minitron-4b, qwen2-vl-2b's text path), its MoE and MLA decoders
+(olmoe-1b-7b, deepseek-v2-lite-16b) and the configurations of all ten
 architectures (``config.py``), which the roofline layer prices.
 
 ``build_model(cfg, device=, generator=)`` makes a ``CausalLM`` with fresh
 parameters; ``params_from_numpy(cfg, tree)`` carries the JAX package's
-parameters across. MLA and MoE, mamba2, rwkv6 and the encoder-decoder are
-not ported yet (ROADMAP A item 6)."""
+parameters across. mamba2, rwkv6 and the encoder-decoder are not ported
+yet (ROADMAP A item 2)."""
 from .causal_lm import CausalLM
 from .config import ModelConfig
 from .convert import params_from_numpy

@@ -6,34 +6,41 @@ stacked on a leading axis; the port holds one module per layer
 (``causal_lm.CausalLM``) and runs them in a Python loop, in the scan's
 order. ``stage_unit_kinds`` is ported whole, so every config names its
 stack; the block functions cover the attention kinds (``attn``,
-``attn_local``, ``attn_global``). Every other kind raises
-NotImplementedError: MLA and MoE, mamba2, rwkv6 and the encoder-decoder
-kinds are ROADMAP A item 6.
+``attn_local``, ``attn_global``), MLA (``mla``: deepseek's dense prefix)
+and the MoE kinds (``moe``: GQA attention and experts; ``mla_moe``).
+Every other kind raises NotImplementedError: mamba2, rwkv6 and the
+encoder-decoder kinds are ROADMAP A item 2.
 
-Per-block telemetry (``_stats``: activation absmax and rms) is returned
-beside the activations, as the JAX package returns it from the scan.
+Per-block telemetry (``_stats``: activation absmax and rms, and for the
+MoE kinds the router's aux loss, expert load and drop fraction) is
+returned beside the activations, as the JAX package returns it from the
+scan.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
 from .layers import attention as attn_lib
+from .layers import mla as mla_lib
+from .layers import moe as moe_lib
 from .layers.mlp import mlp, mlp_init
 from .layers.norm import apply_norm, norm_init
 
 ATTENTION_KINDS = ("attn", "attn_local", "attn_global")
+MOE_KINDS = ("moe", "mla_moe")          # the kinds that route to experts
+PORTED_KINDS = ATTENTION_KINDS + ("mla",) + MOE_KINDS
 
 
 def _check_kind(kind: str):
-    if kind not in ATTENTION_KINDS:
+    if kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"layer kind {kind!r} is not ported yet: the port's model zoo "
-            f"holds the attention-only decoders ({', '.join(ATTENTION_KINDS)})"
-            "; MLA and MoE, mamba2, rwkv6 and the encoder-decoder kinds are "
-            "ROADMAP A item 6")
+            f"holds the decoders of kinds {', '.join(PORTED_KINDS)}; "
+            "mamba2, rwkv6 and the encoder-decoder kinds are ROADMAP A "
+            "item 2")
 
 
 # --------------------------------------------------------------------- kinds
@@ -48,28 +55,48 @@ def block_init(gen, cfg, kind: str, dtype=torch.float32,
     """One residual block's parameters (the JAX package's tree and
     scales; the values come from ``gen``)."""
     _check_kind(kind)
-    p = {"norm1": norm_init(cfg, cfg.d_model, dtype, device),
-         "attn": attn_lib.attention_init(gen, cfg, dtype, device),
-         "norm2": norm_init(cfg, cfg.d_model, dtype, device),
-         "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype,
-                         device)}
-    if cfg.post_norms:
+    p = {"norm1": norm_init(cfg, cfg.d_model, dtype, device)}
+    if kind.startswith("mla"):
+        p["attn"] = mla_lib.mla_init(gen, cfg, dtype, device)
+    else:
+        p["attn"] = attn_lib.attention_init(gen, cfg, dtype, device)
+    p["norm2"] = norm_init(cfg, cfg.d_model, dtype, device)
+    if kind in MOE_KINDS:
+        p["moe"] = moe_lib.moe_init(gen, cfg, dtype, device)
+    else:
+        d_ff = (cfg.first_dense_d_ff or cfg.d_ff) if kind == "mla" \
+            else cfg.d_ff
+        p["mlp"] = mlp_init(gen, cfg.d_model, d_ff, cfg.gated_mlp, dtype,
+                            device)
+    if cfg.post_norms and kind in ATTENTION_KINDS:
         p["post_norm1"] = norm_init(cfg, cfg.d_model, dtype, device)
         p["post_norm2"] = norm_init(cfg, cfg.d_model, dtype, device)
     return p
 
 
-def _stats(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+def _stats(x: torch.Tensor, extra: Optional[Dict] = None
+           ) -> Dict[str, torch.Tensor]:
     xf = x.float()
-    return {"absmax": xf.abs().max(), "rms": xf.square().mean().sqrt()}
+    s = {"absmax": xf.abs().max(), "rms": xf.square().mean().sqrt()}
+    if extra:
+        s.update(extra)
+    return s
 
 
-def _residual_mlp(params, x, cfg):
+def _feed_forward(params, x, cfg, kind: str, decode: bool):
+    """The block's second residual: the MLP, or the experts for the MoE
+    kinds with their stats (decode keeps only ``expert_load``, as the
+    JAX package's does)."""
     h = apply_norm(cfg, params["norm2"], x)
-    m = mlp(params["mlp"], h, cfg.act, cfg.gated_mlp)
-    if cfg.post_norms:
-        m = apply_norm(cfg, params["post_norm2"], m)
-    return x + m
+    if kind not in MOE_KINDS:
+        m = mlp(params["mlp"], h, cfg.act, cfg.gated_mlp)
+        if cfg.post_norms and kind in ATTENTION_KINDS:
+            m = apply_norm(cfg, params["post_norm2"], m)
+        return x + m, None
+    mo, aux = moe_lib.moe_block(params["moe"], h, cfg)
+    keys = ("expert_load",) if decode else \
+        ("aux_loss", "expert_load", "drop_fraction")
+    return x + mo, {k: aux[k] for k in keys}
 
 
 def block_apply(params, x: torch.Tensor, cfg, kind: str, cos=None,
@@ -78,19 +105,30 @@ def block_apply(params, x: torch.Tensor, cfg, kind: str, cos=None,
     """Full-sequence residual block."""
     _check_kind(kind)
     h = apply_norm(cfg, params["norm1"], x)
-    a = attn_lib.attention(params["attn"], h, cfg, cos, sin,
-                           window=kind_window(cfg, kind), q_offset=q_offset,
-                           chunk=cfg.attn_chunk)
-    if cfg.post_norms:
+    if kind.startswith("mla"):
+        a = mla_lib.mla_attention(params["attn"], h, cfg, cos, sin,
+                                  q_offset=q_offset, chunk=cfg.attn_chunk)
+    else:
+        a = attn_lib.attention(params["attn"], h, cfg, cos, sin,
+                               window=kind_window(cfg, kind),
+                               q_offset=q_offset, chunk=cfg.attn_chunk)
+    if cfg.post_norms and kind in ATTENTION_KINDS:
         a = apply_norm(cfg, params["post_norm1"], a)
-    x = _residual_mlp(params, x + a, cfg)
-    return x, _stats(x)
+    x, extra = _feed_forward(params, x + a, cfg, kind, decode=False)
+    return x, _stats(x, extra)
 
 
 # ------------------------------------------------------------- decode blocks
 def block_cache_init(cfg, kind: str, batch: int, max_len: int, dtype,
                      device=None) -> Dict[str, torch.Tensor]:
+    """{"k", "v"} [B, L, Hkv, hd] for the attention kinds and ``moe``;
+    {"ckv" [B, L, kv_lora_rank], "kr" [B, L, qk_rope_dim]} for MLA."""
     _check_kind(kind)
+    if kind.startswith("mla"):
+        return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                   dtype=dtype, device=device),
+                "kr": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                                  dtype=dtype, device=device)}
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -102,14 +140,20 @@ def block_decode(params, x: torch.Tensor, cache, pos: int, cfg, kind: str,
     place and returned."""
     _check_kind(kind)
     h = apply_norm(cfg, params["norm1"], x)
-    a, ck, cv = attn_lib.attention_decode(
-        params["attn"], h, cache["k"], cache["v"], pos, cfg, cos, sin,
-        window=kind_window(cfg, kind), chunk=cfg.decode_chunk)
-    cache = dict(cache, k=ck, v=cv)
-    if cfg.post_norms:
+    if kind.startswith("mla"):
+        a, ckv, kr = mla_lib.mla_decode(
+            params["attn"], h, cache["ckv"], cache["kr"], pos, cfg, cos,
+            sin, chunk=cfg.decode_chunk)
+        cache = dict(cache, ckv=ckv, kr=kr)
+    else:
+        a, ck, cv = attn_lib.attention_decode(
+            params["attn"], h, cache["k"], cache["v"], pos, cfg, cos, sin,
+            window=kind_window(cfg, kind), chunk=cfg.decode_chunk)
+        cache = dict(cache, k=ck, v=cv)
+    if cfg.post_norms and kind in ATTENTION_KINDS:
         a = apply_norm(cfg, params["post_norm1"], a)
-    x = _residual_mlp(params, x + a, cfg)
-    return x, cache, _stats(x)
+    x, extra = _feed_forward(params, x + a, cfg, kind, decode=True)
+    return x, cache, _stats(x, extra)
 
 
 # ------------------------------------------------------------------ modules
@@ -186,7 +230,8 @@ def layer_kinds(cfg) -> Tuple[str, ...]:
 
 def stack_stats(stats, unit_kinds) -> list:
     """Per-layer stats of the stacked layers -> the JAX scan's layout: one
-    dict per unit kind, each statistic stacked over the units."""
+    dict per unit kind, each statistic stacked over the units (scalars to
+    [n_units], an expert load [E] to [n_units, E])."""
     n = len(unit_kinds)
     return [{k: torch.stack([st[k] for st in stats[j::n]])
              for k in stats[j]} for j in range(n)]

@@ -1,13 +1,14 @@
 """Decoder-only causal LM (port of the JAX package's
-``models/causal_lm.py``, for the attention-only decoders).
+``models/causal_lm.py``, for the attention-only, MoE and MLA decoders).
 
 Parameters, as the JAX package names them:
 
   embed          token embedding (the LM head when tied)
   pos            learned-position table if pos_type == 'learned'
   layers         one ``blocks.Block`` per layer, in the order the JAX
-                 package's scan runs them (its ``prefix``, then
-                 ``stack[j][u]`` for unit u and unit kind j)
+                 package runs them: its unstacked ``prefix`` (deepseek's
+                 dense layer 0), then ``stack[j][u]`` for unit u and
+                 unit kind j
   final_norm     output norm
   lm_head        untied output projection (if not tied)
 
@@ -102,9 +103,15 @@ class CausalLM(nn.Module):
             if positions is None:
                 positions = rope_lib.positions_from_segment(
                     batch, seq, device=self.device)
-            return rope_lib.rope_angles(positions, cfg.head_dim,
+            return rope_lib.rope_angles(positions, self._rope_dim,
                                         cfg.rope_theta)
         return None, None
+
+    @property
+    def _rope_dim(self) -> int:
+        """The rotary width: MLA's qk_rope_dim, else the head's."""
+        cfg = self.cfg
+        return cfg.qk_rope_dim if cfg.use_mla else cfg.head_dim
 
     def _scaled(self, x: torch.Tensor) -> torch.Tensor:
         """gemma2's embedding scale, sqrt(d_model) rounded to x's dtype
@@ -193,8 +200,8 @@ class CausalLM(nn.Module):
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_len: int,
                    dtype=None) -> List[Dict[str, torch.Tensor]]:
-        """One {"k", "v"} cache per layer, zeros of the activation dtype
-        on the model's device."""
+        """One cache per layer ({"k", "v"}, or {"ckv", "kr"} for MLA),
+        zeros of the activation dtype on the model's device."""
         dt = dtype or _dt(self.cfg)
         return [blocks.block_cache_init(self.cfg, layer.kind, batch,
                                         max_len, dt, self.device)
@@ -224,7 +231,8 @@ class CausalLM(nn.Module):
                                              cfg.mrope_sections)
         elif cfg.pos_type == "rope":
             p = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
-            cos, sin = rope_lib.rope_angles(p, cfg.head_dim, cfg.rope_theta)
+            cos, sin = rope_lib.rope_angles(p, self._rope_dim,
+                                            cfg.rope_theta)
         else:
             cos = sin = None
         new = []
@@ -245,8 +253,9 @@ def _detached(tree):
 
 
 def _collect_aux_loss(stats, device=None) -> torch.Tensor:
-    """The sum of every block's ``aux_loss`` (MoE balance terms), a
-    float32 scalar; zero for the attention-only decoders."""
+    """The sum of every block's ``aux_loss`` (MoE balance terms: a scalar
+    per prefix block, [n_units] per stacked unit kind), a float32 scalar
+    summed in the JAX package's order; zero without MoE layers."""
     total = torch.zeros((), dtype=torch.float32, device=device)
 
     def add(st):

@@ -44,7 +44,7 @@ def params_from_numpy(cfg, tree: Mapping, device=None) -> CausalLM:
     dev = resolve_device(device)
     if tree.get("shared_block"):
         raise NotImplementedError("a shared attention block (zamba2) is "
-                                  "ROADMAP A item 6")
+                                  "ROADMAP A item 2")
     _, n_units, unit_kinds = stage_unit_kinds(cfg)
     out = {k: _tensors(tree[k], dev) for k in TOP_LEVEL if k in tree}
     out["layers"] = [_tensors(p, dev) for p in tree.get("prefix", [])]

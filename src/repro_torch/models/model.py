@@ -19,11 +19,14 @@ def build_model(cfg, device=None,
     The initialisers keep the JAX package's shapes and scales; the values
     come from ``generator`` (default: seed 0 on the device), so they
     follow the same distributions, not JAX's threefry bits. To run the
-    JAX package's own weights use ``convert.params_from_numpy``."""
+    JAX package's own weights use ``convert.params_from_numpy``.
+
+    Builds the attention-only, MoE and MLA families; mamba2, rwkv6 and
+    the encoder-decoder raise NotImplementedError (ROADMAP A item 2)."""
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name} is an encoder-decoder; that family is ROADMAP A "
-            "item 6")
+            "item 2")
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev)

@@ -15,18 +15,23 @@ g is ``counter_uniform(seed, step, g)``, so no key is threaded. The seeds
 package's bits when fed the same statistics.
 
 The JAX package counts the groups with ``eval_shape`` of the loss; the
-port counts them from the model's layers (each block returns one absmax
-and one rms), without a forward step. The expert-load fleet needs the MoE
-layers, which are not ported (ROADMAP A item 2): its group count is 0.
+port counts them from the model's layers, without a forward step: each
+block returns one absmax and one rms, and each MoE block (kinds ``moe``
+and ``mla_moe``) one load per expert. The loads arrive unit-major (the
+stack's [n_units, E] raveled; deepseek's dense prefix has none), so lane
+g of the port's expert-load fleet is lane g of the JAX package's.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.api.fleet import QuantileFleet
 from repro_torch.api.spec import FleetSpec
+from repro_torch.models.blocks import MOE_KINDS, layer_kinds
+
+from .moe_stats import expert_load_groups
 
 # Per-monitor counter seeds: distinct so the three fleets' lane g streams
 # never alias.
@@ -79,11 +84,21 @@ def _flatten_stats(stats: Dict[str, Any]):
     return a, r, (torch.cat(loads) if loads else None)
 
 
+def group_counts(cfg) -> Tuple[int, int]:
+    """(activation groups, expert-load groups) of ``cfg``'s model: one
+    per layer, and one per (MoE layer, expert)."""
+    kinds = layer_kinds(cfg)
+    return len(kinds), expert_load_groups(
+        sum(kind in MOE_KINDS for kind in kinds), cfg.moe_experts)
+
+
 def init_train_monitors(model, device=None) -> TrainMonitors:
     """The three fleets for ``model`` (a ``CausalLM``): one group per
-    layer for the activation fleets, on ``device`` (None: the model's)."""
+    layer for the activation fleets, one per (MoE layer, expert) for the
+    expert-load fleet (None without MoE layers), on ``device`` (None:
+    the model's)."""
     dev = model.device if device is None else device
-    n_act, n_moe = len(model.layers), 0
+    n_act, n_moe = group_counts(model.cfg)
     return TrainMonitors(
         act_absmax_q99=make_fleet(n_act, 0.99, SEED_ABSMAX, device=dev),
         act_rms_q50=make_fleet(n_act, 0.5, SEED_RMS, device=dev),

@@ -23,7 +23,9 @@ model and prompts give the same tokens and the same SLO state:
   slot with a shorter history attends zero-filled (or overwritten) rows;
 - a prompt that runs past ``max_len`` writes its KV at the last cache
   row (the decode step clamps the write, as the reference's
-  ``dynamic_update_slice`` does);
+  ``dynamic_update_slice`` does); the cache is the model's list of
+  per-layer caches, {"k", "v"} for attention and {"ckv", "kr"} (the
+  latent and the shared rope key) for MLA, written in place;
 - the host clock (``time.time``) is read where the reference reads it.
   ``dt_ms`` covers the dispatch of the decode call: the logits' host copy
   comes after the clock is read, and nothing synchronises the card before

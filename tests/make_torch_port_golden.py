@@ -113,13 +113,29 @@ on them; each step's flattened activation stats and both monitor fleets'
 planes and cursors after ``update_train_monitors`` on them. The
 checkpoint holds the ``TrainState`` after 4 steps (step 4).
 
+The MoE and MLA families (keys ``moe/<arch>/*``, for olmoe-1b-7b and
+deepseek-v2-lite-16b): each reduced config narrowed (``moe_config``:
+d_model 64, 4 heads over 2 kv heads of 16, d_ff 128 (deepseek's dense
+prefix too), vocab 256, 8 experts of d_ff 32, top 2; olmoe 2 MoE layers,
+deepseek an MLA prefix and 2 MLA-MoE layers), its JAX ``TrainState``
+from ``jax.random.PRNGKey(0)`` (AdamW, the three monitor fleets, the
+clip) stored leaf by leaf in ``moe/<arch>/init/*`` as ``train/init`` is. With those
+parameters: the JAX ``forward`` over the first training batch's tokens
+(each MoE unit's expert load and drop fraction, ``moe/<arch>/route/*``);
+the JAX ``ServeEngine`` on ``serve_requests`` as for ``serve/*``
+(``moe/<arch>/serve/*``); and MOE_TRAIN_STEPS jitted ``train_step``s on
+the JAX ``SyntheticCorpus`` batches (vocab 256, seq 32, batch 4, seed 0):
+each step's loss, ce and aux loss and grad norm, and the expert-load
+fleet's planes and cursor after it (``moe/<arch>/train/*``).
+
     PYTHONPATH=src python tests/make_torch_port_golden.py
     PYTHONPATH=src python tests/make_torch_port_golden.py --only-serving
     PYTHONPATH=src python tests/make_torch_port_golden.py --only-training
+    PYTHONPATH=src python tests/make_torch_port_golden.py --only-moe
 
-``--only-serving`` (``--only-training``) rewrites the ``serve/*``
-(``train/*`` and the training checkpoint) keys and keeps every other key
-of the file as it is.
+``--only-serving`` (``--only-training``, ``--only-moe``) rewrites the
+``serve/*`` (``train/*`` and the training checkpoint, ``moe/*``) keys and
+keeps every other key of the file as it is.
 """
 import os
 import shutil
@@ -171,6 +187,10 @@ SERVE_REQUESTS, SERVE_LONG_PROMPT = 6, 40
 TRAIN_STEPS, TRAIN_CKPT_STEP, TRAIN_SEQ, TRAIN_BATCH = 8, 4, 32, 4
 TRAIN_LR = (1e-3, 10, 30)        # warmup_cosine(peak, warmup, total)
 TRAIN_MONITORS = ("act_absmax_q99", "act_rms_q50")
+MOE_ARCHS = ("olmoe-1b-7b", "deepseek-v2-lite-16b")
+MOE_WIDTHS = dict(SERVE_WIDTHS, moe_d_ff=32)
+MOE_MONITORS = TRAIN_MONITORS + ("expert_load_q99",)
+MOE_TRAIN_STEPS = 4
 
 
 def random_planes(rng, prog, lanes):
@@ -872,9 +892,21 @@ def golden_serving():
     return out
 
 
-def train_state_arrays(state, prefix="train/init"):
-    """{key: array} of a JAX ``TrainState`` (AdamW, two monitor fleets,
-    the clip), numpy leaves."""
+def moe_config(cfg):
+    """A golden MoE engine's config from the package's reduced
+    ``olmoe-1b-7b`` or ``deepseek-v2-lite-16b`` config: MOE_WIDTHS, and
+    deepseek's dense prefix at the same d_ff."""
+    import dataclasses
+
+    kw = dict(MOE_WIDTHS)
+    if cfg.first_dense_d_ff:
+        kw["first_dense_d_ff"] = kw["d_ff"]
+    return dataclasses.replace(cfg, **kw)
+
+
+def train_state_arrays(state, prefix="train/init", monitors=TRAIN_MONITORS):
+    """{key: array} of a JAX ``TrainState`` (AdamW, the ``monitors``
+    fleets, the clip), numpy leaves."""
     import jax
 
     st = jax.tree.map(np.asarray, state)
@@ -884,7 +916,7 @@ def train_state_arrays(state, prefix="train/init"):
     out[f"{prefix}/count"] = st.opt_state.count
     out[f"{prefix}/step"] = st.step
     out[f"{prefix}/rng"] = st.rng
-    for name in TRAIN_MONITORS:
+    for name in monitors:
         fleet = getattr(st.monitors, name)
         for f in ("m", "step", "sign"):
             out[f"{prefix}/{name}/{f}"] = getattr(fleet.state, f)
@@ -918,8 +950,9 @@ def train_state_tree(data, prefix="train/init"):
         step=data[f"{prefix}/step"], rng=data[f"{prefix}/rng"],
         monitors=NS(act_absmax_q99=fleet("act_absmax_q99"),
                     act_rms_q50=fleet("act_rms_q50"),
-                    expert_load_q99=None, n_act_groups=n_act,
-                    n_moe_groups=n_moe),
+                    expert_load_q99=fleet("expert_load_q99")
+                    if f"{prefix}/expert_load_q99/m" in data else None,
+                    n_act_groups=n_act, n_moe_groups=n_moe),
         qclip=NS(sketch=NS(**{f: data[f"{prefix}/qclip/{f}"]
                               for f in ("m", "step", "sign")}),
                  warmup=data[f"{prefix}/qclip/warmup"]))
@@ -1000,6 +1033,75 @@ def golden_training(root):
     return out
 
 
+def moe_train_batches(data, arch):
+    """A golden MoE arch's training batches: [{tokens, targets}] int32."""
+    return [{"tokens": data[f"moe/{arch}/train/tokens"][i],
+             "targets": data[f"moe/{arch}/train/targets"][i]}
+            for i in range(MOE_TRAIN_STEPS)]
+
+
+def golden_moe():
+    """{key: array} of the JAX package's MoE and MLA families
+    (``moe/*``)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config, reduce_for_smoke
+    from repro.data.pipeline import DataConfig, SyntheticCorpus
+    from repro.models import build_model
+    from repro.optim import Optimizer, warmup_cosine
+    from repro.serve import engine as engine_mod
+    from repro.train import create_train_state, make_train_step
+
+    out = {}
+    for arch in MOE_ARCHS:
+        key = f"moe/{arch}"
+        cfg = moe_config(reduce_for_smoke(get_config(arch)))
+        model = build_model(cfg)
+        opt = Optimizer(kind="adamw", lr_fn=warmup_cosine(*TRAIN_LR))
+        corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
+                                            seq_len=TRAIN_SEQ,
+                                            batch_size=TRAIN_BATCH))
+        batches = [corpus.batch(i) for i in range(MOE_TRAIN_STEPS)]
+        state = create_train_state(model, opt, jax.random.PRNGKey(0),
+                                   example_batch=batches[0])
+        out.update(train_state_arrays(state, f"{key}/init", MOE_MONITORS))
+        out[f"{key}/train/tokens"] = np.stack([b["tokens"] for b in batches])
+        out[f"{key}/train/targets"] = np.stack([b["targets"]
+                                                for b in batches])
+        _, stats = model.forward(state.params,
+                                 tokens=jnp.asarray(batches[0]["tokens"]))
+        for name in ("expert_load", "drop_fraction"):
+            out[f"{key}/route/{name}"] = np.asarray(stats["stack"][0][name])
+
+        real_time = engine_mod.time
+        engine_mod.time = FakeClock()
+        try:
+            eng = engine_mod.ServeEngine(model, state.params,
+                                         batch_slots=SERVE_SLOTS,
+                                         max_len=SERVE_MAX_LEN)
+            served = serve_engine_results(eng, engine_mod.Request)
+        finally:
+            engine_mod.time = real_time
+        out.update({f"{key}/{k}": v for k, v in served.items()})
+
+        step = jax.jit(make_train_step(model, opt))
+        rows = {k: [] for k in ("loss", "ce_loss", "aux_loss", "grad_norm",
+                                "m", "step", "sign", "cursor")}
+        for b in batches:
+            state, met = step(state, {k: jnp.asarray(v)
+                                      for k, v in b.items()})
+            for k in ("loss", "ce_loss", "aux_loss", "grad_norm"):
+                rows[k].append(np.float32(met[k]))
+            fleet = state.monitors.expert_load_q99
+            for f in ("m", "step", "sign"):
+                rows[f].append(np.asarray(getattr(fleet.state, f)))
+            rows["cursor"].append(np.asarray([int(x) for x in fleet.cursor],
+                                             np.int32))
+        out.update({f"{key}/train/{k}": np.stack(v)
+                    for k, v in rows.items()})
+    return out
+
+
 def golden_checkpoints(root):
     """Write the JAX package's checkpoints under ``root`` (one directory
     per fleet: ``2u``, ``2u-window``, ``slo``) and return {key: array} of
@@ -1059,6 +1161,7 @@ def build(ckpt_root=None):
     arrays.update(golden_placement())
     arrays.update(golden_serving())
     arrays.update(golden_training(ckpt_root))
+    arrays.update(golden_moe())
     return arrays
 
 
@@ -1066,7 +1169,8 @@ if __name__ == "__main__":
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "src"))
     os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
-    only = {"--only-serving": "serve/", "--only-training": "train/"}
+    only = {"--only-serving": "serve/", "--only-training": "train/",
+            "--only-moe": "moe/"}
     if len(sys.argv) == 2 and sys.argv[1] in only:
         prefix = only[sys.argv[1]]
         with np.load(GOLDEN) as old:
@@ -1074,6 +1178,8 @@ if __name__ == "__main__":
                       if not k.startswith(prefix)}
         if prefix == "serve/":
             arrays.update(golden_serving())
+        elif prefix == "moe/":
+            arrays.update(golden_moe())
         else:
             shutil.rmtree(os.path.join(CKPT_ROOT, "train"),
                           ignore_errors=True)

@@ -10,9 +10,17 @@ CUDA device):
   and the port's engine under the golden maker's fake clock give the JAX
   engine's tokens, first step logits (within 1e-4 absolute), summary and
   SLO state (bit for bit); on the CPU and on the card.
-* The five attention-only configs, reduced (float32), fresh weights from
-  a seeded generator: ``forward`` and 8 ``decode_step``s on the card
-  within 1e-4 absolute of the CPU.
+* The golden MoE entries (``moe/<arch>/*``, olmoe-1b-7b and
+  deepseek-v2-lite-16b narrowed): the JAX package's weights through
+  ``train_state_from_numpy``; a forward's expert loads and drop
+  fractions bit for bit (the routing); the engine's tokens, first step
+  logits within 1e-4, summary and SLO state bit for bit; four
+  ``train_step``s with each loss within 1e-5 relative (1e-4 on the
+  card, as phase 14 holds later losses) and the expert-load fleet bit for
+  bit after each; on the CPU and on the card.
+* The five attention-only configs and the two MoE configs, reduced
+  (float32), fresh weights from a seeded generator: ``forward`` and 8
+  ``decode_step``s on the card within 1e-4 absolute of the CPU.
 * The engine on the card against the engine on the CPU under the fake
   clock, on both flush branches: tokens equal, SLO state bit for bit, one
   run kernel launch per flush on the sparse branch; the launcher on the
@@ -36,8 +44,10 @@ from repro_torch.serve import engine as tengine
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import make_torch_port_golden as golden  # noqa: E402
 
-ARCHS = ("yi-6b", "gemma2-9b", "granite-20b", "minitron-4b", "qwen2-vl-2b")
+ARCHS = ("yi-6b", "gemma2-9b", "granite-20b", "minitron-4b", "qwen2-vl-2b",
+         "olmoe-1b-7b", "deepseek-v2-lite-16b")
 LOGIT_TOL = 1e-4
+MOE_LOSS_REL = {"cpu": 1e-5, "cuda": 1e-4}
 
 
 def bits(x):
@@ -86,6 +96,57 @@ def test_golden_serving_entry_on_cpu(monkeypatch):
 def test_golden_serving_entry_on_card(card, monkeypatch):
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert_golden(*golden_results(card, monkeypatch))
+
+
+def check_golden_moe(arch, device, monkeypatch):
+    from repro_torch.models.convert import train_state_from_numpy
+    from repro_torch.optim import Optimizer, warmup_cosine
+    from repro_torch.train import make_train_step
+
+    data = np.load(golden.GOLDEN)
+    key = f"moe/{arch}"
+    cfg = golden.moe_config(reduce_for_smoke(get_config(arch)))
+    st = train_state_from_numpy(cfg, golden.train_state_tree(
+        data, f"{key}/init"), device=device)
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+               for b in golden.moe_train_batches(data, arch)]
+    with torch.no_grad():
+        _, stats = st.params(batches[0]["tokens"])
+    for name in ("expert_load", "drop_fraction"):
+        np.testing.assert_array_equal(
+            bits(stats["stack"][0][name]), bits(data[f"{key}/route/{name}"]))
+    monkeypatch.setattr(tengine, "time", golden.FakeClock())
+    eng = ServeEngine(st.params, batch_slots=golden.SERVE_SLOTS,
+                      max_len=golden.SERVE_MAX_LEN, device=device)
+    got = golden.serve_engine_results(eng, Request)
+    assert_golden(got, {k: data[f"{key}/{k}"] for k in got})
+    step = make_train_step(st.params, Optimizer(
+        kind="adamw", lr_fn=warmup_cosine(*golden.TRAIN_LR)))
+    rel = MOE_LOSS_REL[torch.device(device).type]
+    for i, b in enumerate(batches):
+        st, met = step(st, b)
+        assert float(met["loss"]) == pytest.approx(
+            float(data[f"{key}/train/loss"][i]), rel=rel), i
+        fleet = st.monitors.expert_load_q99
+        assert fleet.device.type == torch.device(device).type
+        for f in ("m", "step", "sign"):
+            np.testing.assert_array_equal(
+                bits(getattr(fleet.state, f)),
+                bits(data[f"{key}/train/{f}"][i]), (i, f))
+        assert [int(x) for x in fleet.cursor] == \
+            data[f"{key}/train/cursor"][i].tolist()
+
+
+@pytest.mark.parametrize("arch", golden.MOE_ARCHS)
+def test_golden_moe_entry_on_cpu(arch, monkeypatch):
+    check_golden_moe(arch, "cpu", monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", golden.MOE_ARCHS)
+def test_golden_moe_entry_on_card(card, arch, monkeypatch):
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    check_golden_moe(arch, card, monkeypatch)
 
 
 def cpu_model(arch, seed=0):

@@ -9,8 +9,11 @@ outputs token for token, ``stats_summary()`` and the SLO fleet's planes
 and clocks bit for bit, and the telemetry counters equal, on both flush
 branches of the SLO fleet (the default 64 routes: dense rounds; 1400
 routes registered up front, 4200 > 4096 lanes: the sparse branch), each
-with a prompt longer than max_len (the cache write clamps). Also: the
-engine's and the launcher's device checks. The golden file's serving
+with a prompt longer than max_len (the cache write clamps). The two MoE
+configs (reduced olmoe-1b-7b, GQA and experts; reduced
+deepseek-v2-lite-16b, the MLA latent cache, whose write clamps the same
+way) on the dense branch, likewise. Also: the engine's and the
+launcher's device checks, and the launcher serving each MoE arch. The golden file's serving
 entry and the card's runs are in ``test_torch_serve_card.py``, which
 imports no JAX.
 
@@ -48,14 +51,21 @@ def bits(x):
     return x.view(np.int32) if x.dtype == np.float32 else x
 
 
-@pytest.fixture(scope="module")
-def pair():
-    """(JAX model, params, port model) of reduced yi-6b."""
-    jm = jbuild_model(jreduce(jget_config("yi-6b")))
+MOE_ARCHS = ("olmoe-1b-7b", "deepseek-v2-lite-16b")
+
+
+def make_pair(arch):
+    """(JAX model, params, port model) of reduced ``arch``."""
+    jm = jbuild_model(jreduce(jget_config(arch)))
     params = jm.init(jax.random.PRNGKey(1))
-    tm = params_from_numpy(reduce_for_smoke(get_config("yi-6b")),
+    tm = params_from_numpy(reduce_for_smoke(get_config(arch)),
                            jax.tree.map(np.asarray, params), device="cpu")
     return jm, params, tm
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return make_pair("yi-6b")
 
 
 def requests(vocab, n_routes):
@@ -85,7 +95,21 @@ def serve(make_engine, module, request_cls, reqs, n_routes, monkeypatch):
 
 @pytest.mark.parametrize("n_routes", [5, 1400], ids=["dense", "sparse"])
 def test_engine_matches_jax(pair, n_routes, monkeypatch):
-    jm, params, tm = pair
+    check_engine_against_jax(*pair, n_routes, monkeypatch)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_engine_matches_jax(arch, monkeypatch):
+    jm, params, tm = make_pair(arch)
+    kinds = {layer.kind for layer in tm.layers}
+    assert kinds == ({"moe"} if arch == "olmoe-1b-7b" else
+                     {"mla", "mla_moe"})
+    eng = check_engine_against_jax(jm, params, tm, 5, monkeypatch)
+    assert all(set(c) == ({"ckv", "kr"} if "mla" in kinds else {"k", "v"})
+               for c in eng.caches)
+
+
+def check_engine_against_jax(jm, params, tm, n_routes, monkeypatch):
     reqs = requests(tm.cfg.vocab_size, n_routes)
     jtel, ttel = JTelemetry(seed=0), Telemetry(device="cpu")
     jeng, jticks = serve(
@@ -119,6 +143,7 @@ def test_engine_matches_jax(pair, n_routes, monkeypatch):
     assert ttel.counters() == jtel.counters()
     assert ttel.counters()["requests_completed"] == len(reqs)
     assert ttel.counters()["slo_flushes"] == tticks
+    return teng
 
 
 def test_engine_refuses_a_model_on_another_device(pair, monkeypatch):
@@ -143,6 +168,16 @@ def test_launcher_serves_on_cpu_and_needs_a_card_by_default(capsys,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         launch_serve.main(["--requests", "1"])
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_launcher_serves_moe_archs_on_cpu(arch, capsys):
+    import json
+
+    launch_serve.main(["--arch", arch, "--device", "cpu", "--requests", "3",
+                       "--max-new", "3", "--slots", "2"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["arch"] == arch and out["served"] == 3
 
 
 def test_build_model_serves_through_the_engine():

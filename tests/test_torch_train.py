@@ -21,6 +21,16 @@ Contracts and tolerances:
 * The claims of ``tests/test_train_loop.py`` on the port alone (120
   steps), and the preemption restart of ``tests/test_fault_tolerance.py``
   as two subprocesses of ``repro_torch.launch.train --device cpu``.
+* The MoE configs, reduced (olmoe-1b-7b; deepseek-v2-lite-16b with its
+  MLA prefix): loss, aux loss and gradients as above (the aux loss now a
+  real balance term); four ``train_step``s from the JAX package's
+  initial ``TrainState`` on its batches, each loss within STEP_REL, the
+  expert-load fleet (2 units x 8 experts = 16 lanes, as the JAX
+  package's ``eval_shape`` counts them) bit for bit after every step; the
+  state after them carried to the port and back bit for bit, and a port
+  checkpoint of it restored by the JAX package with equal manifests.
+  The full configs' group counts: 26 x 64 = 1664 (deepseek), 16 x 64 =
+  1024 (olmoe).
 """
 import dataclasses
 import json
@@ -64,6 +74,8 @@ from repro_torch.train.trainer import StepTimeMonitor, Trainer
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
 ARCHS = ("yi-6b", "gemma2-9b", "granite-20b", "minitron-4b", "qwen2-vl-2b")
+MOE_ARCHS = ("olmoe-1b-7b", "deepseek-v2-lite-16b")
+MOE_STEPS = 4
 LOSS_REL, GRAD_TOL = 1e-5, 1e-4
 BF16_LOSS_REL, BF16_GRAD_TOL = 5e-4, 8e-2
 STEP_REL = 1e-5
@@ -395,6 +407,116 @@ def test_train_state_checkpoint_crosses_both_ways(tmp_path):
         manifest(tmp_path / "port2", 12)
 
 
+# -------------------------------------------------------------- MoE
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_loss_and_grads_match_jax(arch):
+    jcfg, tcfg = cfgs(arch)
+    jl, jaux, jgrads, tl, taux, tm = loss_and_grads(arch,
+                                                    batch_for(tcfg, 7, s=24))
+    assert abs(float(tl) - float(jl)) <= LOSS_REL * abs(float(jl))
+    assert float(jaux["aux_loss"]) > 0.0
+    assert float(taux["aux_loss"]) == pytest.approx(
+        float(jaux["aux_loss"]), rel=LOSS_REL)
+    check_grads(tm, jgrads, GRAD_TOL)
+    for name, p in tm.named_parameters():
+        if name.endswith("router"):
+            assert float(p.grad.abs().max()) > 0.0, name
+
+
+_MOE = {}
+
+
+def jax_moe_run(arch):
+    """The JAX package's reduced ``arch``: its initial TrainState (numpy),
+    MOE_STEPS batches of its corpus, each step's metrics and expert-load
+    fleet, the state after the steps."""
+    if arch in _MOE:
+        return _MOE[arch]
+    jcfg, _ = cfgs(arch)
+    jm = jbuild_model(jcfg)
+    opt = JOptimizer(kind="adamw", lr_fn=jwarmup_cosine(1e-3, 10, 30))
+    corpus = JCorpus(JDataConfig(vocab_size=jcfg.vocab_size, seq_len=32,
+                                 batch_size=4))
+    batches = [corpus.batch(i) for i in range(MOE_STEPS)]
+    state = jcreate_train_state(jm, opt, jax.random.PRNGKey(0),
+                                example_batch=batches[0])
+    init = jax.tree.map(np.asarray, state)
+    step = jax.jit(jmake_train_step(jm, opt))
+    metrics, fleets = [], []
+    for b in batches:
+        state, met = step(state, jbatch(b))
+        metrics.append({k: float(v) for k, v in met.items()})
+        fleets.append(jax.tree.map(np.asarray,
+                                   state.monitors.expert_load_q99))
+    _MOE[arch] = (jm, init, batches, metrics, fleets,
+                  jax.tree.map(np.asarray, state))
+    return _MOE[arch]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_train_steps_and_expert_load_fleet_match_jax(arch):
+    _, init, batches, metrics, fleets, _ = jax_moe_run(arch)
+    tcfg = cfgs(arch)[1]
+    st = train_state_from_numpy(tcfg, init, device="cpu")
+    assert st.monitors.n_moe_groups == int(init.monitors.n_moe_groups) \
+        == 2 * tcfg.moe_experts
+    assert tmon.group_counts(tcfg) == (int(init.monitors.n_act_groups),
+                                       int(init.monitors.n_moe_groups))
+    fresh = tmon.init_train_monitors(st.params)
+    assert fresh.n_moe_groups == st.monitors.n_moe_groups
+    opt = Optimizer(kind="adamw", lr_fn=warmup_cosine(1e-3, 10, 30))
+    step = make_train_step(st.params, opt)
+    for i, b in enumerate(batches):
+        st, met = step(st, tbatch(b))
+        for k in ("loss", "ce_loss", "aux_loss", "grad_norm"):
+            assert float(met[k]) == pytest.approx(metrics[i][k],
+                                                  rel=STEP_REL), (i, k)
+        fl, jf = st.monitors.expert_load_q99, fleets[i]
+        for f in ("m", "step", "sign"):
+            np.testing.assert_array_equal(bits(getattr(fl.state, f)),
+                                          bits(getattr(jf.state, f)))
+        assert [int(x) for x in fl.cursor] == \
+            [int(np.asarray(x)) for x in jf.cursor]
+    assert float(host(st.monitors.expert_load_q99.state.m).max()) > 0.0
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_train_state_crosses_both_ways(arch, tmp_path):
+    """The JAX state after the steps -> the port's -> the JAX layout, leaf
+    for leaf bit for bit (the expert-load fleet's lanes included); a port
+    checkpoint of it restored by the JAX package and written again with
+    an equal manifest."""
+    jm, init, _, _, _, final = jax_moe_run(arch)
+    tcfg = cfgs(arch)[1]
+    st = train_state_from_numpy(tcfg, final, device="cpu")
+    assert st.monitors.expert_load_q99.state.m.shape == \
+        (2 * tcfg.moe_experts,)
+    back = train_state_to_numpy(st)
+    got = tckpt._flatten(tckpt._pack_sketches(back))
+    want = jax.tree_util.tree_leaves(jckpt._pack_sketches(final))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g, w = host(g), np.asarray(w)
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g.reshape(-1).view(np.uint8),
+                                      w.reshape(-1).view(np.uint8))
+    tckpt.save_train_state(str(tmp_path / "port"), MOE_STEPS, st)
+    restored, _ = jckpt.restore_checkpoint(str(tmp_path / "port"),
+                                           jax.tree.map(jnp.asarray, init))
+    jckpt.save_checkpoint(str(tmp_path / "jax"), MOE_STEPS, restored)
+    assert manifest(tmp_path / "jax", MOE_STEPS) == \
+        manifest(tmp_path / "port", MOE_STEPS)
+
+
+def test_full_config_group_counts():
+    """The expert-load fleet's lanes at full width: (layer, expert) for
+    every MoE layer, deepseek's dense prefix excluded."""
+    assert tmon.group_counts(get_config("deepseek-v2-lite-16b")) == \
+        (27, 26 * 64)
+    assert tmon.group_counts(get_config("olmoe-1b-7b")) == (16, 16 * 64)
+    assert tmon.group_counts(get_config("yi-6b")) == (32, 0)
+
+
 # ------------------------------------------------------------ trajectory
 @pytest.fixture(scope="module")
 def trained():
@@ -490,6 +612,17 @@ def test_launcher_needs_a_card_or_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         launch_train.main(["--steps", "1"])
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_launcher_trains_moe_archs_on_cpu(arch, capsys):
+    from repro_torch.launch import train as launch_train
+
+    launch_train.main(["--arch", arch, "--device", "cpu", "--steps", "4",
+                       "--batch", "2", "--seq", "16"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["arch"] == arch and out["final_step"] == 4
+    assert np.isfinite(out["last_loss"])
 
 
 # ---------------------------------------------------------- golden entry
