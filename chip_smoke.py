@@ -170,7 +170,7 @@ each or more:
      layers, d_model 4096, 32/4 GQA heads, d_ff 11008, vocab 64000,
      float32 parameters from a seeded torch generator, bf16 activations),
      ServeEngine(batch_slots=4, max_len=512) with 10^6 routes registered
-     (3 x 2^20 SLO lanes, so every flush is one run kernel launch), 16
+     (3 x 2^20 SLO lanes, so every flush is one run kernel launch), 8
      requests from numpy seed 0 (prompts of 8-32 tokens, 16-32 new
      tokens, Zipf(1.2) routes): every request served with its token
      count, one B3 launch per engine step, the SLO planes and clocks
@@ -179,7 +179,8 @@ each or more:
      forward(..., last_only=True) over one request's tokens; ms per step
      (CUDA events around the decode call, the engine's host clock),
      decode tokens/s, TTFT p50/p99, B3 per flush, peak device memory, the
-     step's bound (float32 weights and the KV cache read once at the
+     step's bound (each layer's float32 weights once per use, the head,
+     the embedding rows gathered and the KV cache read once at the
      gpu-h100 HwSpec's 3.35 TB/s) and its share, and a torch.profiler
      trace of 8 steps of a second engine (busy share, top device ops);
  14. the training path (repro_torch.train, optim, monitor, the port of the
@@ -219,9 +220,9 @@ each or more:
      10,944; vocab 102,400; 15.7 B float32 parameters, 62.8 GB, from a
      seeded generator on the card after the earlier phases' memory is
      released and the free memory checked; bf16 activations) served as
-     phase 13 (b) serves yi-6b: 4 slots x 512, 10^6 routes, 16 requests,
-     one B3 launch per step, SLO state vs a CPU replay, the decode path vs
-     forward at capacity factor 16.0 (no drops, as tests/test_arch_smoke.py
+     phase 13 (b) serves yi-6b (but 16 requests): 4 slots x 512, 10^6
+     routes, one B3 launch per step, SLO state vs a CPU replay, the decode
+     path vs forward at capacity factor 16.0 (no drops, as tests/test_arch_smoke.py
      holds JAX) within 3e-2 x max|logit|, ms per step, tokens/s, TTFT, peak
      memory, the byte bound's share, a traced second engine; (c)
      olmoe-1b-7b at full width (16 layers, 6.9 B parameters), 4 requests,
@@ -231,6 +232,36 @@ each or more:
      clip and monitors on, 8 x 64 tokens): the loss falling, the aux loss
      positive, the expert-load fleet's 4 x 64 = 256 lanes positive,
      load_imbalance, ms per step against its bound. (b) and (c) are the
+     main path: B3 is counted from 0 around each run.
+ 16. the recurrent families (repro_torch.models.layers.mamba2 / rwkv6, the
+     blocks' mamba / rwkv kinds, zamba2's one shared attention block):
+     (a) the golden file's narrowed zamba2-2.7b, rwkv6-1.6b and rwkv6 in
+     its H1 factorized form (the JAX package's TrainStates with every
+     parameter leaf redrawn, ssm/* keys) on the card: forward logits and
+     the engine's first step logits within 1e-4, its tokens, summary and
+     SLO state bit for bit (the lockstep prefill advancing every row's
+     recurrent state, as the JAX engine's does), four train steps (losses
+     within 1e-4 relative, both activation fleets' sign planes and
+     cursors bit for bit, m and step within 1e-4 x |m|); (b) zamba2-2.7b
+     at full width (54 layers, d_model 2560: 45 mamba2 layers of d_inner
+     5120 in 80 heads of 64, state 64, conv 4, chunk 128, and one shared
+     attention block of 32 x 80 heads with a gated GELU MLP of d_ff
+     10,240 at 9 positions; vocab 32,000 untied; 2.06 B float32
+     parameters from a seeded generator, bf16 activations) and (c)
+     rwkv6-1.6b at full width (24 layers, d_model 2048, 32 heads of 64,
+     d_ff 7168, vocab 65,536, the baseline chunked form; 1.48 B
+     parameters), each served as phase 13 (b) serves yi-6b: 4 slots x
+     512, 10^6 routes, 8 requests, one B3 launch per step, SLO state vs
+     a CPU replay, a fresh row's float32 decode vs forward over a
+     136-token prompt (two chunks, the second padded) within 1e-4 x
+     max|logit| (the bf16 difference reported), ms per step, tokens/s,
+     TTFT, peak memory, the share of phase 13's byte bound (the shared
+     block read at each of its 9 uses; the recurrent state in place of
+     a KV cache), and a traced second engine; (d) rwkv6-1.6b at full width trained by
+     Trainer.run for 20 steps (AdamW, clip and monitors on, 8 x 64
+     tokens) after the earlier phases' memory is released and the free
+     memory checked: the loss falling, the monitors positive, no frugal
+     kernel launched, ms per step against its bound. (b) and (c) are the
      main path: B3 is counted from 0 around each run.
 
 frugal_update_auto launches B1 at the roofline autotuner's block size
@@ -3156,7 +3187,9 @@ def phase_roofline(torch, gm, card, loops, shapes, eval_blocks):
 SERVE_SEED = 0           # numpy seed of the traffic, torch seed of weights
 SERVE_SLOTS, SERVE_MAX_LEN = 4, 512
 SERVE_ROUTES = 10 ** 6
-SERVE_REQUESTS = 16
+# Requests of each full-width engine run of phases 13 and 16: 8 keeps
+# the whole script well inside its time limit on a slow host.
+SERVE_REQUESTS = 8
 SERVE_TRACE_STEPS = 8
 # Decode path against forward at full width, bf16 activations through 32
 # layers: |difference| at most this times max |logit|.
@@ -3170,45 +3203,55 @@ SERVE_FULL = {"layers": 32, "d_model": 4096, "num_heads": 32,
 MEM_HEADROOM = 4 * 2 ** 30
 
 
-def serve_golden(torch, gm):
-    """(a) The golden file's reduced yi-6b (the JAX package's weights,
-    stored) through params_from_numpy and the port's engine on the card,
-    under the golden maker's fake clock: the JAX engine's tokens, first
-    step logits within SERVE_GOLDEN_LOGIT_TOL, summary and SLO state bit
-    for bit."""
+def golden_engine(torch, gm, model, data, prefix, what):
+    """The port's engine on the card around ``model``, under the golden
+    maker's fake clock, fed ``gm.serve_requests``: the JAX engine's tokens
+    (``data[prefix + "serve/..."]``), first step logits within
+    SERVE_GOLDEN_LOGIT_TOL, summary and SLO state bit for bit; ``what``
+    names the check in a failure. Returns the logits' max abs error."""
     import numpy as np
-    from repro_torch.configs import get_config, reduce_for_smoke
-    from repro_torch.models import params_from_numpy
     from repro_torch.serve import Request, ServeEngine
     from repro_torch.serve import engine as engine_mod
 
-    data = np.load(GOLDEN)
-    cfg = gm.serve_config(reduce_for_smoke(get_config(gm.SERVE_ARCH)))
-    model = params_from_numpy(cfg, gm.unflatten_params(data),
-                              device="cuda")
     real_time = engine_mod.time
     engine_mod.time = gm.FakeClock()
     try:
         eng = ServeEngine(model, batch_slots=gm.SERVE_SLOTS,
                           max_len=gm.SERVE_MAX_LEN)
         if eng.device.type != "cuda" or eng.slo.device.type != "cuda":
-            fail(f"serving (a): the engine runs on {eng.device}")
+            fail(f"{what}: the engine runs on {eng.device}")
         got = gm.serve_engine_results(eng, Request)
     finally:
         engine_mod.time = real_time
-    for key in ("serve/outputs", "serve/output_lengths"):
-        if not np.array_equal(got[key], data[key]):
-            fail(f"serving (a): {key} {got[key].tolist()} != the JAX "
-                 f"engine's {data[key].tolist()}")
+    for k in ("serve/outputs", "serve/output_lengths"):
+        if not np.array_equal(got[k], data[prefix + k]):
+            fail(f"{what}: {k} {got[k].tolist()} != the JAX engine's "
+                 f"{data[prefix + k].tolist()}")
     err = float(np.abs(got["serve/first_step_logits"]
-                       - data["serve/first_step_logits"]).max())
+                       - data[prefix + "serve/first_step_logits"]).max())
     if not err <= SERVE_GOLDEN_LOGIT_TOL:
-        fail(f"serving (a): first step logits differ by {err}")
-    for key in ("serve/summary", "serve/slo/m", "serve/slo/step",
-                "serve/slo/sign", "serve/slo/ticks"):
-        if not np.array_equal(got[key].view(np.int32),
-                              data[key].view(np.int32)):
-            fail(f"serving (a): {key} differs from the JAX engine's")
+        fail(f"{what}: first step logits differ by {err}")
+    for k in ("serve/summary", "serve/slo/m", "serve/slo/step",
+              "serve/slo/sign", "serve/slo/ticks"):
+        if not np.array_equal(got[k].view(np.int32),
+                              data[prefix + k].view(np.int32)):
+            fail(f"{what}: {k} differs from the JAX engine's")
+    return err
+
+
+def serve_golden(torch, gm):
+    """(a) The golden file's reduced yi-6b (the JAX package's weights,
+    stored) through params_from_numpy and the port's engine on the card,
+    under the golden maker's fake clock (``golden_engine``)."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import params_from_numpy
+
+    data = np.load(GOLDEN)
+    cfg = gm.serve_config(reduce_for_smoke(get_config(gm.SERVE_ARCH)))
+    model = params_from_numpy(cfg, gm.unflatten_params(data),
+                              device="cuda")
+    err = golden_engine(torch, gm, model, data, "", "serving (a)")
     say("serve", check="a", arch=f"{gm.SERVE_ARCH} reduced "
         f"(d_model {cfg.d_model}, {cfg.num_layers} layers, float32)",
         requests=len(data["serve/prompt_lengths"]),
@@ -3315,10 +3358,10 @@ def serve_replay_on_cpu(torch, eng, names):
     return plain
 
 
-def serve_forward_check(torch, model, req, check=True):
+def serve_forward_check(torch, model, req, tol=SERVE_FORWARD_TOL):
     """The decode path (a fresh batch-1 cache fed the request's tokens one
     by one) against forward(..., last_only=True) over the same tokens, at
-    the last position; held to SERVE_FORWARD_TOL if ``check``."""
+    the last position; held to ``tol`` x max |logit| unless it is None."""
     seq = req.prompt + req.output[:-1]
     toks = torch.tensor([seq], dtype=torch.int32, device="cuda")
     cache = model.init_cache(1, SERVE_MAX_LEN)
@@ -3328,7 +3371,7 @@ def serve_forward_check(torch, model, req, check=True):
         fwd, _ = model(toks, last_only=True)
     scale = float(fwd.abs().max())
     err = float((dec - fwd).abs().max())
-    if check and not err <= SERVE_FORWARD_TOL * scale:
+    if tol is not None and not err <= tol * scale:
         fail(f"serving: {model.cfg.name}'s decode path's logits differ from "
              f"forward's by {err} (max |logit| {scale})")
     same_top = int(dec[0, 0].argmax()) == int(fwd[0, 0].argmax())
@@ -3418,19 +3461,39 @@ def config_override(model, **changes):
             m.cfg = old
 
 
+def per_use_weight_bytes(model, batch: int) -> int:
+    """The weight bytes one decode step reads: every layer's parameters
+    once per use (a shared block once at each of its positions), the
+    final norm, the LM head, and the ``batch`` embedding rows it gathers
+    (the table is not read whole unless it is the tied head)."""
+    def nbytes(m):
+        return sum(p.numel() * p.element_size() for p in m.parameters())
+
+    table = model.embed["table"]
+    head = nbytes(model.embed) if model.cfg.tie_embeddings \
+        else nbytes(model.lm_head) + batch * table[0].numel() \
+        * table.element_size()
+    return sum(nbytes(layer) for layer in model.layers) \
+        + nbytes(model.final_norm) + head
+
+
 def serve_full(torch, arch, expect, n_requests, card, tag, check,
-               moe_forward=False, trace=True):
+               trace=True):
     """``arch`` at full width (``expect``: its layer count and config
     widths), float32 parameters from a seeded generator on the card,
     ServeEngine(SERVE_SLOTS, SERVE_MAX_LEN) with SERVE_ROUTES routes
     registered, fed ``n_requests`` requests; the checks and numbers of
     phase 13 (b), a traced second engine if ``trace``. The decode path is
-    held against forward in the config's activations, or for a MoE
-    config (``moe_forward``) at capacity factor MOE_FORWARD_CF in float32
-    activations, with the bf16 difference reported beside it. Earlier
-    phases' memory is released first and the card's free memory checked
-    against the weights. Returns the run kernel's launches on the run
-    (one per flush)."""
+    held against forward in the config's activations (within
+    SERVE_FORWARD_TOL), or for a MoE config at capacity factor
+    MOE_FORWARD_CF in float32 activations (SERVE_FORWARD_TOL), or for a
+    recurrent config in float32 activations over a fresh row fed a
+    SSM_FORWARD_PROMPT-token prompt (SSM_FORWARD_TOL), with the bf16
+    difference reported beside the last two. The byte bound reads each
+    layer's weights once per use (``per_use_weight_bytes``) and the
+    cache once. Earlier phases' memory is released first
+    and the card's free memory checked against the weights. Returns the
+    run kernel's launches on the run (one per flush)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import frugal_update as fk
@@ -3534,7 +3597,8 @@ def serve_full(torch, arch, expect, n_requests, card, tag, check,
     ttft = [(r.t_first - r.t_submit) * 1e3 for r in done]
     tokens = sum(len(r.output) for r in done)
     hw = hw_for("gpu-h100")
-    bound_ms = (param_bytes + cache_bytes) / hw.hbm_bw * 1e3
+    weight_bytes = per_use_weight_bytes(model, SERVE_SLOTS)
+    bound_ms = (weight_bytes + cache_bytes) / hw.hbm_bw * 1e3
     step_ms = statistics.median(decode_ms)
     say(tag, check=check, served=len(done), tokens=tokens,
         prompt_tokens=sum(len(r.prompt) for r in done), steps=len(
@@ -3555,11 +3619,12 @@ def serve_full(torch, arch, expect, n_requests, card, tag, check,
         note="device: CUDA events around the step's decode call; engine "
              "dt_ms: the engine's host clock (dispatch, no sync); host: "
              "perf_counter around eng.step() (decode, logits copy, flush)")
-    say(tag, check=check, step_bytes=param_bytes + cache_bytes,
-        step_bound_ms=f"{bound_ms:.4f}",
+    say(tag, check=check, step_bytes=weight_bytes + cache_bytes,
+        step_weight_bytes=weight_bytes, step_bound_ms=f"{bound_ms:.4f}",
         step_bound_share=f"{bound_ms / step_ms:.4f}",
-        bound_note=f"float32 weights + cache read once over the "
-                   f"gpu-h100 HwSpec's {hw.hbm_bw / 1e12:.2f} TB/s",
+        bound_note=f"float32 weights once per use, embedding rows "
+                   f"gathered + cache read once over the gpu-h100 "
+                   f"HwSpec's {hw.hbm_bw / 1e12:.2f} TB/s",
         max_memory_allocated_bytes=peak, card=card)
     serve_replay_on_cpu(torch, eng, names)
     say(tag, check=check, b3_launches=launches, flushes=flushes,
@@ -3569,29 +3634,38 @@ def serve_full(torch, arch, expect, n_requests, card, tag, check,
                   "replaying the engine's observations and flushes",
         note="flush device ms: CUDA events around SLOFleet.flush (event "
              "copies and one B3 launch)")
-    if moe_forward:
-        # In bf16 the two paths round differently and flip near-tied
-        # router choices, a whole expert's output for a token: the bf16
-        # difference is reported, the float32 one held to the bound.
-        with config_override(model, capacity_factor=MOE_FORWARD_CF):
+    moe = bool(cfg.moe_experts)
+    recurrent = cfg.family in ("ssm", "hybrid")
+    tol = SSM_FORWARD_TOL if recurrent else SERVE_FORWARD_TOL
+    if moe or recurrent:
+        # In bf16 the two paths round differently (and flip near-tied
+        # router choices, a whole expert's output for a token): the bf16
+        # difference is reported, the float32 one held to the bound. A
+        # recurrent model's fresh row is fed a prompt of its own.
+        req = done[0]
+        over = dict(capacity_factor=MOE_FORWARD_CF) if moe else {}
+        if recurrent:
+            req = dataclasses.replace(req, prompt=rng.integers(
+                0, cfg.vocab_size, SSM_FORWARD_PROMPT).tolist(), output=[0])
+        with config_override(model, **over):
             _, bf16_err, bf16_scale, bf16_top = serve_forward_check(
-                torch, model, done[0], check=False)
-        with config_override(model, capacity_factor=MOE_FORWARD_CF,
-                             dtype="float32"):
+                torch, model, req, tol=None)
+        with config_override(model, dtype="float32", **over):
             n_seq, err, scale, same_top = serve_forward_check(
-                torch, model, done[0])
+                torch, model, req, tol=tol)
         say(tag, check=check, forward_vs_decode_bf16_max_abs_err=f"{bf16_err:.4e}",
             bf16_max_abs_logit=f"{bf16_scale:.4f}",
             bf16_share_of_max_logit=f"{bf16_err / bf16_scale:.4f}",
             bf16_same_argmax=bf16_top, note="information, not checked")
     else:
-        n_seq, err, scale, same_top = serve_forward_check(torch, model,
-                                                          done[0])
+        n_seq, err, scale, same_top = serve_forward_check(
+            torch, model, done[0], tol=tol)
     say(tag, check=check, forward_vs_decode_tokens=n_seq,
-        activations="float32" if moe_forward else cfg.dtype,
+        activations="float32" if moe or recurrent else cfg.dtype,
         max_abs_err=f"{err:.4e}", max_abs_logit=f"{scale:.4f}",
-        tolerance=f"{SERVE_FORWARD_TOL} x max|logit|",
-        forward_capacity_factor=MOE_FORWARD_CF if moe_forward else "null",
+        share_of_max_logit=f"{err / scale:.4e}",
+        tolerance=f"{tol} x max|logit|",
+        forward_capacity_factor=MOE_FORWARD_CF if moe else "null",
         same_argmax=same_top)
     b3_trace_ms = serve_trace(torch, model, names, rng, card, tag) \
         if trace else None
@@ -4051,8 +4125,6 @@ def moe_golden(torch, gm, card):
     from repro_torch.configs import get_config, reduce_for_smoke
     from repro_torch.models.convert import train_state_from_numpy
     from repro_torch.optim import Optimizer, warmup_cosine
-    from repro_torch.serve import Request, ServeEngine
-    from repro_torch.serve import engine as engine_mod
     from repro_torch.train import make_train_step
 
     data = np.load(GOLDEN)
@@ -4075,27 +4147,8 @@ def moe_golden(torch, gm, card):
                              torch.from_numpy(data[f"{key}/route/{name}"])):
                 fail(f"moe (a): {arch}'s {name} differs from the JAX "
                      "package's: the routing differs")
-        real_time = engine_mod.time
-        engine_mod.time = gm.FakeClock()
-        try:
-            eng = ServeEngine(st.params, batch_slots=gm.SERVE_SLOTS,
-                              max_len=gm.SERVE_MAX_LEN)
-            got = gm.serve_engine_results(eng, Request)
-        finally:
-            engine_mod.time = real_time
-        for k in ("serve/outputs", "serve/output_lengths"):
-            if not np.array_equal(got[k], data[f"{key}/{k}"]):
-                fail(f"moe (a): {arch}'s {k} {got[k].tolist()} != the JAX "
-                     f"engine's {data[f'{key}/{k}'].tolist()}")
-        err = float(np.abs(got["serve/first_step_logits"]
-                           - data[f"{key}/serve/first_step_logits"]).max())
-        if not err <= SERVE_GOLDEN_LOGIT_TOL:
-            fail(f"moe (a): {arch}'s first step logits differ by {err}")
-        for k in ("serve/summary", "serve/slo/m", "serve/slo/step",
-                  "serve/slo/sign", "serve/slo/ticks"):
-            if not np.array_equal(got[k].view(np.int32),
-                                  data[f"{key}/{k}"].view(np.int32)):
-                fail(f"moe (a): {arch}'s {k} differs from the JAX engine's")
+        err = golden_engine(torch, gm, st.params, data, f"{key}/",
+                            f"moe (a): {arch}")
         step = make_train_step(st.params, Optimizer(
             kind="adamw", lr_fn=warmup_cosine(*gm.TRAIN_LR)))
         want = data[f"{key}/train/loss"]
@@ -4293,12 +4346,259 @@ def phase_moe(torch, gm, card):
     launches = 0
     for arch, check, n in MOE_SERVE:
         launches += serve_full(torch, arch, MOE_FULL[arch], n, card, "moe",
-                               check, moe_forward=True, trace=check == "b")
+                               check, trace=check == "b")
     counts = (fk.launch_count, fk.scatter_launch_count)
     moe_train(torch, card)
     if (fk.launch_count, fk.scatter_launch_count) != counts:
         fail("moe (d): the training path launched a frugal kernel")
     say("moe", phase_s=f"{time.perf_counter() - t0:.1f}", card=card)
+    return launches
+
+# --------------------------------------------------------------- phase 16
+SSM_SERVE = (("zamba2-2.7b", "b", SERVE_REQUESTS),
+             ("rwkv6-1.6b", "c", SERVE_REQUESTS))
+SSM_FULL = {
+    "zamba2-2.7b": {
+        "layers": 54, "d_model": 2560, "num_heads": 32, "num_kv_heads": 32,
+        "head_dim": 80, "d_ff": 10240, "ssm_state": 64, "ssm_headdim": 64,
+        "ssm_expand": 2, "ssm_chunk": 128, "conv_kernel": 4,
+        "shared_attention": True, "vocab_size": 32000},
+    "rwkv6-1.6b": {
+        "layers": 24, "d_model": 2048, "rwkv_head_size": 64, "d_ff": 7168,
+        "rwkv_factorized": False, "vocab_size": 65536}}
+# The fresh row's decode against forward in float32: a prompt past one
+# chunk (128), so that forward carries state across chunks and pads the
+# last (8 of 128 used), held to this times max |logit|.
+SSM_FORWARD_PROMPT = 136
+SSM_FORWARD_TOL = 1e-4
+# On the card, against the JAX package's CPU run: the later losses at
+# phase 14's bound; the activation fleets' m and step planes within this
+# times |m| a lane (where the 2U tick set m to the statistic itself),
+# their sign planes and cursors bit for bit. Chosen before the first run.
+SSM_GOLDEN_STATS_REL = 1e-4
+SSM_TRAIN_ARCH, SSM_TRAIN_STEPS = "rwkv6-1.6b", 20
+SSM_TRAIN_LR = (1e-3, 10, SSM_TRAIN_STEPS)   # launch/train.py's schedule
+
+
+def ssm_golden(torch, gm, card):
+    """(a) The golden file's narrowed zamba2, rwkv6 and rwkv6 in its H1
+    factorized form (the JAX package's TrainStates with every parameter
+    redrawn, ssm/* keys) on the card: forward logits over the first
+    batch within SERVE_GOLDEN_LOGIT_TOL, the engine under the fake clock
+    (tokens, first step logits within SERVE_GOLDEN_LOGIT_TOL, summary and
+    SLO state bit for bit), then gm.SSM_TRAIN_STEPS train steps (losses
+    within MOE_GOLDEN_LOSS_REL; both activation fleets' sign planes and
+    cursors bit for bit, m and step within SSM_GOLDEN_STATS_REL x |m|)."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models.convert import train_state_from_numpy
+    from repro_torch.optim import Optimizer, warmup_cosine
+    from repro_torch.train import make_train_step
+
+    data = np.load(GOLDEN)
+    for name, (arch, factorized) in gm.SSM_MODELS.items():
+        t0 = time.perf_counter()
+        key = f"ssm/{name}"
+        cfg = gm.ssm_config(reduce_for_smoke(get_config(arch)), factorized)
+        st = train_state_from_numpy(cfg, gm.train_state_tree(
+            data, gm.ssm_init_prefix(name)), device="cuda")
+        shared = st.params.shared_block
+        if st.params.device.type != "cuda" or (shared is not None) != \
+                cfg.shared_attention or (shared is not None and sum(
+                    layer is shared for layer in st.params.layers) != 2):
+            fail(f"ssm (a): {name} carried to {st.params.device}, shared "
+                 "block not one module at its 2 positions")
+        batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+                   for b in gm.ssm_train_batches(data, name)]
+        with torch.no_grad():
+            logits, _ = st.params(batches[0]["tokens"])
+        fwd_err = float(np.abs(logits.cpu().numpy()
+                               - data[f"{key}/forward/logits"]).max())
+        if not fwd_err <= SERVE_GOLDEN_LOGIT_TOL:
+            fail(f"ssm (a): {name}'s forward logits differ by {fwd_err}")
+        err = golden_engine(torch, gm, st.params, data, f"{key}/",
+                            f"ssm (a): {name}")
+        step = make_train_step(st.params, Optimizer(
+            kind="adamw", lr_fn=warmup_cosine(*gm.TRAIN_LR)))
+        want = data[f"{key}/train/loss"]
+        rel, plane_rel = [], 0.0
+        for i, b in enumerate(batches):
+            st, met = step(st, b)
+            rel.append(abs(float(met["loss"]) - want[i]) / abs(want[i]))
+            for mon in gm.TRAIN_MONITORS:
+                fleet = getattr(st.monitors, mon)
+                pre = f"{key}/train/{mon}"
+                scale = np.abs(data[f"{pre}/m"][i])
+                for f in ("m", "step"):
+                    d = np.abs(getattr(fleet.state, f).cpu().numpy()
+                               - data[f"{pre}/{f}"][i])
+                    plane_rel = max(plane_rel, float(
+                        (d / np.maximum(scale, 1e-30)).max()))
+                    if not (d <= SSM_GOLDEN_STATS_REL * scale).all():
+                        fail(f"ssm (a): {name}'s {mon} {f} plane differs at "
+                             f"step {i} by {d.max()}")
+                if not same_bits(torch, fleet.state.sign.cpu(),
+                                 torch.from_numpy(data[f"{pre}/sign"][i])) \
+                        or [int(x) for x in fleet.cursor] != \
+                        data[f"{pre}/cursor"][i].tolist():
+                    fail(f"ssm (a): {name}'s {mon} sign or cursor differs "
+                         f"at step {i}")
+        if not max(rel) <= MOE_GOLDEN_LOSS_REL:
+            fail(f"ssm (a): {name}'s losses differ from the JAX package's by "
+                 f"{max(rel)} relative")
+        say("ssm", check="a", arch=f"{name} narrowed (d_model {cfg.d_model}, "
+            f"{cfg.num_layers} layers, float32, every leaf redrawn)",
+            forward_logits_max_abs_err=f"{fwd_err:.3e}",
+            tokens=int(data[f"{key}/serve/output_lengths"].sum()),
+            tokens_equal=True, first_step_logits_max_abs_err=f"{err:.3e}",
+            summary_and_slo_state="bit-identical to the JAX engine's",
+            train_steps=len(batches), loss_max_rel_err=f"{max(rel):.3e}",
+            act_fleets_m_step_max_rel=f"{plane_rel:.3e}",
+            act_fleets_sign_cursor="bit-identical",
+            part_s=f"{time.perf_counter() - t0:.1f}", card=card)
+
+
+def ssm_train(torch, card):
+    """(d) rwkv6-1.6b at full width, float32 parameters from a seeded
+    generator, AdamW, quantile clip and monitors on, SyntheticCorpus at
+    TRAIN_BATCH x TRAIN_SEQ: Trainer.run for SSM_TRAIN_STEPS steps after
+    the earlier phases' memory is released and the free memory checked
+    (parameters, gradients and moments, and 24 layers' chunked-WKV decay
+    tensors kept for the backward); the loss falling, the monitors
+    positive, ms per step against train_bound."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import rng as crng
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.models import build_model
+    from repro_torch.monitor.registry import monitor_summary
+    from repro_torch.optim import Optimizer, warmup_cosine
+    from repro_torch.train import create_train_state, make_train_step
+    from repro_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    gc.collect()            # earlier engines sit in reference cycles
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    cfg = get_config(SSM_TRAIN_ARCH)
+    # [1, B, H, c, c, n] float32 decay, its exp and the einsum's product
+    # kept per layer (c = TRAIN_SEQ, one chunk)
+    n = cfg.rwkv_head_size
+    decay = 4 * TRAIN_BATCH * (cfg.d_model // n) * TRAIN_SEQ ** 2 * n
+    need = 16 * cfg.n_params() + 3 * cfg.num_layers * decay
+    free, total = torch.cuda.mem_get_info()
+    if free < need + MEM_HEADROOM:
+        fail(f"ssm (d): {free} bytes free of {total}, training needs about "
+             f"{need} and {MEM_HEADROOM} to run")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TRAIN_SEED)
+    model = build_model(cfg, device="cuda", generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    widths = {k: v for k, v in SSM_FULL[SSM_TRAIN_ARCH].items()
+              if k != "layers"}
+    if len(model.layers) != SSM_FULL[SSM_TRAIN_ARCH]["layers"] or any(
+            getattr(cfg, k) != v for k, v in widths.items()):
+        fail("ssm (d): the model is not rwkv6-1.6b at full width")
+    opt = Optimizer(kind="adamw", lr_fn=warmup_cosine(*SSM_TRAIN_LR))
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=TRAIN_SEQ,
+                                        batch_size=TRAIN_BATCH,
+                                        seed=TRAIN_SEED))
+    example = next(corpus.iterate(prefetch=0, device="cuda"))
+    state = create_train_state(model, opt, crng.prng_key(TRAIN_SEED),
+                               example_batch=example)
+    step_fn = make_train_step(model, opt)
+    events = []
+
+    def timed_step(st, batch):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = step_fn(st, batch)
+        b.record()
+        events.append((a, b))
+        return out
+
+    trainer = Trainer(model, opt, timed_step, corpus.iterate(device="cuda"),
+                      log_every=10, log_fn=lambda line: None)
+    t_run = time.perf_counter()
+    state = trainer.run(state, SSM_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.metrics_history
+    losses = [m["loss"] for m in hist]
+    if len(hist) != SSM_TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"ssm (d): {len(hist)} steps, losses {losses}")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last5 < first5:
+        fail(f"ssm (d): the loss did not fall ({first5} -> {last5})")
+    summary = monitor_summary(state.monitors)
+    mon_min = min(float(v.min()) for v in summary.values())
+    if state.monitors.n_act_groups != cfg.num_layers or not mon_min > 0 \
+            or state.qclip.warmup != SSM_TRAIN_STEPS:
+        fail(f"ssm (d): monitors {state.monitors.n_act_groups} groups, "
+             f"least estimate {mon_min}, clip warmup {state.qclip.warmup}")
+    host_ms = [m["step_time_s"] * 1e3 for m in hist]
+    dev_ms = [a.elapsed_time(b) for a, b in events]
+    steady = host_ms[5:]
+    step_ms = statistics.median(steady)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    nbytes, nops, bound_ms, bound_by, bytes_ms, ops_ms = train_bound(
+        model, cfg, tokens)
+    say("ssm", check="d", arch=f"{SSM_TRAIN_ARCH} full width",
+        layers=len(model.layers), params=n_params, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, chunk=min(cfg.ssm_chunk, TRAIN_SEQ),
+        steps=SSM_TRAIN_STEPS, run_s=f"{run_s:.3f}", free_before_bytes=free,
+        card=card)
+    say("ssm", check="d", step_ms_host_median_steps_6_20=f"{step_ms:.3f}",
+        step_ms_host_p10_p90=f"{pct(steady, 10):.3f},{pct(steady, 90):.3f}",
+        step_ms_host_first=f"{host_ms[0]:.3f}",
+        step_ms_device_median_steps_6_20=f"{statistics.median(dev_ms[5:]):.3f}",
+        tokens_per_s=f"{tokens / step_ms * 1e3:.1f}",
+        max_memory_allocated_bytes=peak, held_before_bytes=held,
+        peak_of_training_bytes=peak - held, step_bytes=nbytes,
+        step_operations=nops, bytes_bound_ms=f"{bytes_ms:.3f}",
+        operations_bound_ms=f"{ops_ms:.3f}", step_bound_ms=f"{bound_ms:.3f}",
+        bound_by=bound_by, step_bound_share=f"{bound_ms / step_ms:.4f}",
+        bound_note="train_bound: 24 B a parameter; 6 x tokens x matmul "
+                   "parameters (the chunked WKV's float32 einsums not "
+                   "counted)")
+    say("ssm", check="d", first_loss=f"{losses[0]:.4f}",
+        last_loss=f"{losses[-1]:.4f}", mean_first5=f"{first5:.4f}",
+        mean_last5=f"{last5:.4f}", qclip_warmup=state.qclip.warmup,
+        act_groups=state.monitors.n_act_groups,
+        monitors_min_estimate=f"{mon_min:.5f}",
+        stragglers=sum(m["straggler"] for m in hist),
+        part_s=f"{time.perf_counter() - t0:.1f}")
+    del state, model, trainer, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_ssm(torch, gm, card):
+    """Phase 16: (a) the golden recurrent entries; (b) zamba2-2.7b and (c)
+    rwkv6-1.6b at full width through the engine; (d) rwkv6-1.6b trained
+    at full width. Returns the run kernel's launches on (b) and (c)."""
+    from repro_torch.kernels import frugal_update as fk
+
+    t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        fail("ssm: TF32 matmuls are on; the float32 golden check needs "
+             "them off")
+    ssm_golden(torch, gm, card)
+    launches = 0
+    for arch, check, n in SSM_SERVE:
+        launches += serve_full(torch, arch, SSM_FULL[arch], n, card, "ssm",
+                               check)
+    counts = (fk.launch_count, fk.scatter_launch_count)
+    ssm_train(torch, card)
+    if (fk.launch_count, fk.scatter_launch_count) != counts:
+        fail("ssm (d): the training path launched a frugal kernel")
+    say("ssm", phase_s=f"{time.perf_counter() - t0:.1f}", card=card)
     return launches
 
 
@@ -4347,6 +4647,7 @@ def main() -> None:
     flush_entry["launches"] += phase_serving(torch, gm, card)
     phase_training(torch, gm, card)
     flush_entry["launches"] += phase_moe(torch, gm, card)
+    flush_entry["launches"] += phase_ssm(torch, gm, card)
     torch.cuda.synchronize()
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("JAX or the JAX package was imported")

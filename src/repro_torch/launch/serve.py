@@ -6,9 +6,12 @@ prints the routes' SLO summary.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v2-lite-16b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch zamba2-2.7b --device cpu
 
-``--arch`` names any config of the attention-only, MoE (olmoe-1b-7b) and
-MLA (deepseek-v2-lite-16b) families.
+``--arch`` names any config of the attention-only, MoE (olmoe-1b-7b), MLA
+(deepseek-v2-lite-16b), SSM (rwkv6-1.6b) and hybrid (zamba2-2.7b)
+families: every decoder of the zoo.
 
 ``--device`` defaults to the card and raises where there is none.
 """

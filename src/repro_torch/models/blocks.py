@@ -6,15 +6,20 @@ stacked on a leading axis; the port holds one module per layer
 (``causal_lm.CausalLM``) and runs them in a Python loop, in the scan's
 order. ``stage_unit_kinds`` is ported whole, so every config names its
 stack; the block functions cover the attention kinds (``attn``,
-``attn_local``, ``attn_global``), MLA (``mla``: deepseek's dense prefix)
-and the MoE kinds (``moe``: GQA attention and experts; ``mla_moe``).
-Every other kind raises NotImplementedError: mamba2, rwkv6 and the
-encoder-decoder kinds are ROADMAP A item 2.
+``attn_local``, ``attn_global``), MLA (``mla``: deepseek's dense prefix),
+the MoE kinds (``moe``: GQA attention and experts; ``mla_moe``) and the
+recurrent kinds (``mamba``: a mamba2 mixer alone, no MLP; ``rwkv``: time
+mix and channel mix, both weight sets under ``tm``). The encoder-decoder
+kinds raise NotImplementedError: they are ROADMAP A item 2.
 
 Per-block telemetry (``_stats``: activation absmax and rms, and for the
 MoE kinds the router's aux loss, expert load and drop fraction) is
 returned beside the activations, as the JAX package returns it from the
 scan.
+
+Decode updates a layer's cache dict in place: attention writes one
+position of its KV, the recurrent kinds copy their new state over the
+old (every row advances, whatever its token).
 """
 from __future__ import annotations
 
@@ -24,14 +29,17 @@ import torch
 from torch import nn
 
 from .layers import attention as attn_lib
+from .layers import mamba2 as mamba_lib
 from .layers import mla as mla_lib
 from .layers import moe as moe_lib
+from .layers import rwkv6 as rwkv_lib
 from .layers.mlp import mlp, mlp_init
 from .layers.norm import apply_norm, norm_init
 
 ATTENTION_KINDS = ("attn", "attn_local", "attn_global")
 MOE_KINDS = ("moe", "mla_moe")          # the kinds that route to experts
-PORTED_KINDS = ATTENTION_KINDS + ("mla",) + MOE_KINDS
+RECURRENT_KINDS = ("mamba", "rwkv")
+PORTED_KINDS = ATTENTION_KINDS + ("mla",) + MOE_KINDS + RECURRENT_KINDS
 
 
 def _check_kind(kind: str):
@@ -39,8 +47,7 @@ def _check_kind(kind: str):
         raise NotImplementedError(
             f"layer kind {kind!r} is not ported yet: the port's model zoo "
             f"holds the decoders of kinds {', '.join(PORTED_KINDS)}; "
-            "mamba2, rwkv6 and the encoder-decoder kinds are ROADMAP A "
-            "item 2")
+            "the encoder-decoder kinds are ROADMAP A item 2")
 
 
 # --------------------------------------------------------------------- kinds
@@ -56,6 +63,13 @@ def block_init(gen, cfg, kind: str, dtype=torch.float32,
     scales; the values come from ``gen``)."""
     _check_kind(kind)
     p = {"norm1": norm_init(cfg, cfg.d_model, dtype, device)}
+    if kind == "mamba":
+        p["mamba"] = mamba_lib.mamba2_init(gen, cfg, dtype, device)
+        return p
+    if kind == "rwkv":
+        p["tm"] = rwkv_lib.rwkv6_init(gen, cfg, dtype, device)
+        p["norm2"] = norm_init(cfg, cfg.d_model, dtype, device)
+        return p
     if kind.startswith("mla"):
         p["attn"] = mla_lib.mla_init(gen, cfg, dtype, device)
     else:
@@ -105,6 +119,16 @@ def block_apply(params, x: torch.Tensor, cfg, kind: str, cos=None,
     """Full-sequence residual block."""
     _check_kind(kind)
     h = apply_norm(cfg, params["norm1"], x)
+    if kind == "mamba":
+        x = x + mamba_lib.mamba2_forward(params["mamba"], h, cfg)
+        return x, _stats(x)
+    if kind == "rwkv":
+        tm, _, _ = rwkv_lib.rwkv6_timemix_chunked(params["tm"], h, cfg)
+        x = x + tm
+        h = apply_norm(cfg, params["norm2"], x)
+        cm, _ = rwkv_lib.rwkv6_channelmix(params["tm"], h, cfg)
+        x = x + cm
+        return x, _stats(x)
     if kind.startswith("mla"):
         a = mla_lib.mla_attention(params["attn"], h, cfg, cos, sin,
                                   q_offset=q_offset, chunk=cfg.attn_chunk)
@@ -122,8 +146,21 @@ def block_apply(params, x: torch.Tensor, cfg, kind: str, cos=None,
 def block_cache_init(cfg, kind: str, batch: int, max_len: int, dtype,
                      device=None) -> Dict[str, torch.Tensor]:
     """{"k", "v"} [B, L, Hkv, hd] for the attention kinds and ``moe``;
-    {"ckv" [B, L, kv_lora_rank], "kr" [B, L, qk_rope_dim]} for MLA."""
+    {"ckv" [B, L, kv_lora_rank], "kr" [B, L, qk_rope_dim]} for MLA; the
+    recurrent state for ``mamba`` ({"ssm", "conv"}, float32) and ``rwkv``
+    ({"wkv"} float32, {"x_tm", "x_cm"} [B, 1, D] in ``dtype``)."""
     _check_kind(kind)
+    if kind == "mamba":
+        return mamba_lib.mamba2_init_cache(cfg, batch, torch.float32, device)
+    if kind == "rwkv":
+        n = cfg.rwkv_head_size
+        nh = cfg.d_model // n
+        return {"wkv": torch.zeros((batch, nh, n, n), dtype=torch.float32,
+                                   device=device),
+                "x_tm": torch.zeros((batch, 1, cfg.d_model), dtype=dtype,
+                                    device=device),
+                "x_cm": torch.zeros((batch, 1, cfg.d_model), dtype=dtype,
+                                    device=device)}
     if kind.startswith("mla"):
         return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
                                    dtype=dtype, device=device),
@@ -140,6 +177,22 @@ def block_decode(params, x: torch.Tensor, cache, pos: int, cfg, kind: str,
     place and returned."""
     _check_kind(kind)
     h = apply_norm(cfg, params["norm1"], x)
+    if kind in RECURRENT_KINDS:
+        if kind == "mamba":
+            out, new = mamba_lib.mamba2_decode(params["mamba"], h, cache, cfg)
+            x = x + out
+        else:
+            tm, wkv, x_tm = rwkv_lib.rwkv6_timemix_decode(
+                params["tm"], h, cfg, cache["wkv"], cache["x_tm"])
+            x = x + tm
+            h = apply_norm(cfg, params["norm2"], x)
+            cm, x_cm = rwkv_lib.rwkv6_channelmix(params["tm"], h, cfg,
+                                                 cache["x_cm"])
+            x = x + cm
+            new = {"wkv": wkv, "x_tm": x_tm, "x_cm": x_cm}
+        for k, v in new.items():
+            cache[k].copy_(v)
+        return x, cache, _stats(x)
     if kind.startswith("mla"):
         a, ckv, kr = mla_lib.mla_decode(
             params["attn"], h, cache["ckv"], cache["kr"], pos, cfg, cos,

@@ -1,16 +1,23 @@
 """Decoder-only causal LM (port of the JAX package's
-``models/causal_lm.py``, for the attention-only, MoE and MLA decoders).
+``models/causal_lm.py``, for the attention-only, MoE, MLA, SSM (rwkv6)
+and hybrid (zamba2) decoders).
 
 Parameters, as the JAX package names them:
 
   embed          token embedding (the LM head when tied)
   pos            learned-position table if pos_type == 'learned'
+  shared_block   zamba2's ONE shared attention block, if configured
   layers         one ``blocks.Block`` per layer, in the order the JAX
                  package runs them: its unstacked ``prefix`` (deepseek's
                  dense layer 0), then ``stack[j][u]`` for unit u and
-                 unit kind j
+                 unit kind j; at a shared position the ``shared_block``
+                 module itself, so its uses accumulate one gradient
   final_norm     output norm
   lm_head        untied output projection (if not tied)
+
+``named_parameters()`` lists the shared block once, as ``shared_block.*``
+(the JAX package's key); the per-layer KV caches of its uses stay
+separate, as the JAX package stacks them over units.
 
 This module owns embedding, positions (RoPE / M-RoPE / learned /
 sinusoidal), the layer loop, the loss and the KV cache; all sequence
@@ -42,10 +49,20 @@ def _pdt(cfg) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
+def shared_positions(cfg) -> List[bool]:
+    """Per layer, whether it runs the shared attention block: the
+    stacked units' attention kinds under ``shared_attention``."""
+    n_prefix = len(blocks.stage_unit_kinds(cfg)[0])
+    return [cfg.shared_attention and i >= n_prefix
+            and kind.startswith("attn")
+            for i, kind in enumerate(blocks.layer_kinds(cfg))]
+
+
 def init_tree(cfg, gen: torch.Generator, device=None) -> Dict:
-    """A fresh parameter tree in the port's layout (``layers`` a list):
-    the JAX package's shapes and initialiser scales, the values drawn
-    from ``gen``."""
+    """A fresh parameter tree in the port's layout (``layers`` a list,
+    ``{}`` at each shared position, the shared block drawn once as
+    ``shared_block``): the JAX package's shapes and initialiser scales,
+    the values drawn from ``gen``."""
     pdt = _pdt(cfg)
     tree = {"embed": emb_lib.embedding_init(gen, cfg.vocab_size,
                                             cfg.d_model, pdt, device),
@@ -56,8 +73,16 @@ def init_tree(cfg, gen: torch.Generator, device=None) -> Dict:
     if cfg.pos_type == "learned":
         tree["pos"] = emb_lib.learned_pos_init(gen, cfg.max_seq_len,
                                                cfg.d_model, pdt, device)
-    tree["layers"] = [blocks.block_init(gen, cfg, kind, pdt, device)
-                      for kind in blocks.layer_kinds(cfg)]
+    layers = []
+    for kind, shared in zip(blocks.layer_kinds(cfg), shared_positions(cfg)):
+        if not shared:
+            layers.append(blocks.block_init(gen, cfg, kind, pdt, device))
+            continue
+        if "shared_block" not in tree:
+            tree["shared_block"] = blocks.block_init(gen, cfg, kind, pdt,
+                                                     device)
+        layers.append({})
+    tree["layers"] = layers
     return tree
 
 
@@ -77,9 +102,15 @@ class CausalLM(nn.Module):
             else blocks.Params(tree["lm_head"])
         self.pos = blocks.Params(tree["pos"]) \
             if cfg.pos_type == "learned" else None
-        self.layers = nn.ModuleList(blocks.Block(cfg, kind, t)
-                                    for kind, t in zip(kinds,
-                                                       tree["layers"]))
+        shared = shared_positions(cfg)
+        # Registered before ``layers``: its parameters are named
+        # shared_block.* (their first registration).
+        self.shared_block = blocks.Block(
+            cfg, kinds[shared.index(True)], tree["shared_block"]) \
+            if any(shared) else None
+        self.layers = nn.ModuleList(
+            self.shared_block if s else blocks.Block(cfg, kind, t)
+            for kind, t, s in zip(kinds, tree["layers"], shared))
 
     @property
     def device(self) -> torch.device:
@@ -200,8 +231,11 @@ class CausalLM(nn.Module):
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_len: int,
                    dtype=None) -> List[Dict[str, torch.Tensor]]:
-        """One cache per layer ({"k", "v"}, or {"ckv", "kr"} for MLA),
-        zeros of the activation dtype on the model's device."""
+        """One cache per layer, zeros on the model's device: {"k", "v"},
+        {"ckv", "kr"} for MLA (the activation dtype), {"ssm", "conv"} for
+        mamba2, {"wkv", "x_tm", "x_cm"} for rwkv6 (see
+        ``blocks.block_cache_init``); a shared block's uses each have
+        their own."""
         dt = dtype or _dt(self.cfg)
         return [blocks.block_cache_init(self.cfg, layer.kind, batch,
                                         max_len, dt, self.device)
@@ -210,8 +244,9 @@ class CausalLM(nn.Module):
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, caches, pos: int):
         """One token for the whole batch at position ``pos``: tokens
-        [B, 1]. Every layer's cache is written at ``pos`` in place.
-        Returns (float32 logits [B, 1, V], the caches)."""
+        [B, 1]. Every layer's cache is updated in place (attention at
+        ``pos``; every row's recurrent state advances). Returns (float32
+        logits [B, 1, V], the caches)."""
         cfg = self.cfg
         dt = _dt(cfg)
         b = tokens.shape[0]

@@ -4,7 +4,9 @@
 parameter pytree with numpy leaves (``jax.tree.map(np.asarray, params)``)
 and returns the port's ``CausalLM`` computing what the JAX model computes:
 each stacked unit of ``stack`` (a leading ``n_units`` axis per unit kind)
-becomes one layer module, in the order the JAX scan runs them.
+becomes one layer module, in the order the JAX scan runs them. zamba2's
+``shared_block`` is one module, run at each ``{}`` placeholder of
+``stack``; both directions keep it once, under that key.
 
 ``train_state_from_numpy(cfg, tree)`` does the same for a whole
 ``TrainState`` (parameters, moments, step, key words, monitor fleets and
@@ -24,7 +26,7 @@ from repro_torch.configs.platform import resolve_device
 from .blocks import stage_unit_kinds
 from .causal_lm import CausalLM
 
-TOP_LEVEL = ("embed", "final_norm", "lm_head", "pos")
+TOP_LEVEL = ("embed", "final_norm", "lm_head", "pos", "shared_block")
 
 
 def _tensors(node, device, unit=None):
@@ -42,9 +44,6 @@ def params_from_numpy(cfg, tree: Mapping, device=None) -> CausalLM:
     """The JAX package's parameter tree (numpy leaves) as a port model on
     ``device`` (None: the card; raises where there is none)."""
     dev = resolve_device(device)
-    if tree.get("shared_block"):
-        raise NotImplementedError("a shared attention block (zamba2) is "
-                                  "ROADMAP A item 2")
     _, n_units, unit_kinds = stage_unit_kinds(cfg)
     out = {k: _tensors(tree[k], dev) for k in TOP_LEVEL if k in tree}
     out["layers"] = [_tensors(p, dev) for p in tree.get("prefix", [])]
@@ -77,7 +76,7 @@ def _on(x, device, dtype=None) -> torch.Tensor:
 def flat_from_tree(cfg, tree: Mapping) -> Dict[str, np.ndarray]:
     """A JAX-layout parameter tree (numpy or tensor leaves) -> {the
     port's parameter name: leaf}, stacked units unstacked in scan
-    order."""
+    order; the shared block's leaves once, as ``shared_block.*``."""
     _, n_units, unit_kinds = stage_unit_kinds(cfg)
     out: Dict[str, Any] = {}
 
@@ -136,7 +135,9 @@ def tree_from_flat(cfg, flat: Mapping[str, Any], leaf=_stack_host) -> Dict:
     tree["prefix"] = [mapped(layers[i], leaf) for i in range(n_prefix)]
     stack = []
     for j in range(n_kinds):
-        units = [layers[n_prefix + u * n_kinds + j] for u in range(n_units)]
+        # A shared kind has no layers.* names: its placeholder is {}.
+        units = [layers.get(n_prefix + u * n_kinds + j, {})
+                 for u in range(n_units)]
 
         def stacked(node_u0, path=()):
             if isinstance(node_u0, dict):

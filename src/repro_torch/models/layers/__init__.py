@@ -1,4 +1,3 @@
-"""Layer functions of the attention-only, MoE and MLA decoders: norms,
-positions, embeddings, feed-forward blocks, attention, mixture of experts
-and multi-head latent attention (the JAX package's ``models/layers``,
-less mamba2 and rwkv6)."""
+"""Layer functions of the decoders: norms, positions, embeddings,
+feed-forward blocks, attention, mixture of experts, multi-head latent
+attention, mamba2 (SSD) and rwkv6 (the JAX package's ``models/layers``)."""

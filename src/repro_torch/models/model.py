@@ -21,8 +21,9 @@ def build_model(cfg, device=None,
     follow the same distributions, not JAX's threefry bits. To run the
     JAX package's own weights use ``convert.params_from_numpy``.
 
-    Builds the attention-only, MoE and MLA families; mamba2, rwkv6 and
-    the encoder-decoder raise NotImplementedError (ROADMAP A item 2)."""
+    Builds the attention-only, MoE, MLA, SSM (rwkv6) and hybrid (zamba2)
+    families; the encoder-decoder raises NotImplementedError (ROADMAP A
+    item 2)."""
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name} is an encoder-decoder; that family is ROADMAP A "

@@ -18,14 +18,19 @@ model and prompts give the same tokens and the same SLO state:
 
 - ``_admit`` prefills a slot one prompt token at a time, each a
   whole-batch ``decode_step`` at that slot's position, which writes KV at
-  that position in every row, the other active slots' included;
+  that position in every row, the other active slots' included, and
+  advances every row's recurrent state (mamba2's ``ssm`` and ``conv``,
+  rwkv6's ``wkv``, ``x_tm`` and ``x_cm``) on the other rows' token 0; a
+  newly admitted slot starts from the state its previous request left,
+  as nothing resets it;
 - ``step`` decodes every active slot at the largest slot position, so a
   slot with a shorter history attends zero-filled (or overwritten) rows;
 - a prompt that runs past ``max_len`` writes its KV at the last cache
   row (the decode step clamps the write, as the reference's
   ``dynamic_update_slice`` does); the cache is the model's list of
-  per-layer caches, {"k", "v"} for attention and {"ckv", "kr"} (the
-  latent and the shared rope key) for MLA, written in place;
+  per-layer caches, {"k", "v"} for attention, {"ckv", "kr"} (the
+  latent and the shared rope key) for MLA, {"ssm", "conv"} for mamba2
+  and {"wkv", "x_tm", "x_cm"} for rwkv6, written in place;
 - the host clock (``time.time``) is read where the reference reads it.
   ``dt_ms`` covers the dispatch of the decode call: the logits' host copy
   comes after the clock is read, and nothing synchronises the card before

@@ -36,8 +36,9 @@ class TrainState(NamedTuple):
 def clip_blocks(model) -> Tuple[Tuple[str, ...], Dict[str, List[str]]]:
     """The quantile clip's groups: the JAX parameter tree's top-level keys
     in sorted order (``embed``, ``final_norm``, [``lm_head``], [``pos``],
-    ``prefix``, ``stack``; ``prefix`` may be empty), and each one's
-    parameter names. Every stacked layer falls in ``stack``."""
+    ``prefix``, [``shared_block``], ``stack``; ``prefix`` may be empty),
+    and each one's parameter names. Every stacked layer falls in
+    ``stack``; zamba2's shared block is its own group, as in JAX."""
     n_prefix = len(stage_unit_kinds(model.cfg)[0])
     blocks: Dict[str, List[str]] = {"prefix": [], "stack": []}
     for name, _ in model.named_parameters():

@@ -128,14 +128,31 @@ the JAX ``SyntheticCorpus`` batches (vocab 256, seq 32, batch 4, seed 0):
 each step's loss, ce and aux loss and grad norm, and the expert-load
 fleet's planes and cursor after it (``moe/<arch>/train/*``).
 
+The recurrent families (keys ``ssm/<name>/*``: ``zamba2-2.7b``,
+``rwkv6-1.6b`` and ``rwkv6-1.6b-factorized``, the H1 form at subchunk
+8): each reduced config narrowed (``ssm_config``: d_model 64, 4 heads
+over 2 kv heads of 16 in zamba2's shared block, d_ff 128, vocab 256;
+zamba2 12 layers with a d_inner of 128 in 8 heads, state 16, chunk 32;
+rwkv6 2 layers, heads of 16, chunk 32), its JAX ``TrainState`` from
+``jax.random.PRNGKey(0)`` with every parameter leaf redrawn by
+``redraw_params`` (numpy seed SSM_SEED: the initialiser's constants
+would hide ordering bugs), stored as ``moe/*`` stores it (the factorized
+variant shares ``ssm/rwkv6-1.6b/init/*``); with it the JAX ``forward``
+logits over the first batch's tokens (``ssm/<name>/forward/logits``), the
+engine on ``serve_requests`` (``ssm/<name>/serve/*``) and
+SSM_TRAIN_STEPS jitted train steps: losses, and both activation fleets'
+planes and cursors after each (``ssm/<name>/train/*``).
+
     PYTHONPATH=src python tests/make_torch_port_golden.py
     PYTHONPATH=src python tests/make_torch_port_golden.py --only-serving
     PYTHONPATH=src python tests/make_torch_port_golden.py --only-training
     PYTHONPATH=src python tests/make_torch_port_golden.py --only-moe
+    PYTHONPATH=src python tests/make_torch_port_golden.py --only-ssm
 
-``--only-serving`` (``--only-training``, ``--only-moe``) rewrites the
-``serve/*`` (``train/*`` and the training checkpoint, ``moe/*``) keys and
-keeps every other key of the file as it is.
+``--only-serving`` (``--only-training``, ``--only-moe``, ``--only-ssm``)
+rewrites the ``serve/*`` (``train/*`` and the training checkpoint,
+``moe/*``, ``ssm/*``) keys and keeps every other key of the file as it
+is.
 """
 import os
 import shutil
@@ -191,6 +208,12 @@ MOE_ARCHS = ("olmoe-1b-7b", "deepseek-v2-lite-16b")
 MOE_WIDTHS = dict(SERVE_WIDTHS, moe_d_ff=32)
 MOE_MONITORS = TRAIN_MONITORS + ("expert_load_q99",)
 MOE_TRAIN_STEPS = 4
+# name -> (arch, factorized)
+SSM_MODELS = {"zamba2-2.7b": ("zamba2-2.7b", False),
+              "rwkv6-1.6b": ("rwkv6-1.6b", False),
+              "rwkv6-1.6b-factorized": ("rwkv6-1.6b", True)}
+SSM_WIDTHS = dict(SERVE_WIDTHS, rwkv_head_size=16)
+SSM_SUBCHUNK, SSM_SEED, SSM_TRAIN_STEPS = 8, 23, 4
 
 
 def random_planes(rng, prog, lanes):
@@ -857,10 +880,13 @@ def unflatten_params(data, prefix="serve/params"):
         node[parts[-1]] = np.asarray(data[key])
 
     def lists(node):
+        # A list entry with no leaves (zamba2's {} placeholder in
+        # ``stack``) stored no key: it comes back as {}.
         if not isinstance(node, dict):
             return node
         if node and all(k.isdigit() for k in node):
-            return [lists(node[str(i)]) for i in range(len(node))]
+            return [lists(node.get(str(i), {}))
+                    for i in range(1 + max(int(k) for k in node))]
         return {k: lists(v) for k, v in node.items()}
 
     return lists(root)
@@ -1102,6 +1128,136 @@ def golden_moe():
     return out
 
 
+def redraw_params(tree, seed):
+    """A JAX parameter tree (dicts and lists of numpy leaves) with every
+    leaf redrawn from numpy seed ``seed``, in sorted key order, float32:
+    a leaf the initialiser fills with a constant is drawn around it
+    (``A_log`` N(-1, 0.3), so A = -exp(A_log) < 0; ``dt_bias`` N(0, 0.3);
+    ``D`` N(1, 0.5); ``w0`` N(-2, 0.3), so every decay stays in (0, 1)
+    and no masked exponent of a reduced chunk overflows; the ``mix_*``
+    lerps U(0, 1); norm scales, biases, ``norm_scale`` and ``ln_scale``
+    N(0, 0.1)), every other leaf N(0, its own standard deviation)."""
+    rng = np.random.default_rng(seed)
+    around = {"A_log": (-1.0, 0.3), "dt_bias": (0.0, 0.3), "D": (1.0, 0.5),
+              "w0": (-2.0, 0.3), "scale": (0.0, 0.1), "bias": (0.0, 0.1),
+              "norm_scale": (0.0, 0.1), "ln_scale": (0.0, 0.1)}
+
+    def draw(name, a):
+        a = np.asarray(a)
+        if name.startswith(("mix_", "cmix_")):
+            x = rng.uniform(0.0, 1.0, a.shape)
+        elif name in around:
+            x = rng.normal(*around[name], a.shape)
+        else:
+            x = rng.normal(0.0, float(a.std()), a.shape)
+        return x.astype(np.float32)
+
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            return {k: walk(node[k], k) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, name) for v in node]
+        return draw(name, node)
+
+    return walk(tree)
+
+
+def ssm_config(cfg, factorized=False):
+    """A golden recurrent model's config from the package's reduced
+    ``zamba2-2.7b`` or ``rwkv6-1.6b`` config: SSM_WIDTHS, and the H1
+    form at SSM_SUBCHUNK if ``factorized``."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, **SSM_WIDTHS,
+                               rwkv_factorized=factorized,
+                               rwkv_subchunk=SSM_SUBCHUNK)
+
+
+def ssm_init_prefix(name):
+    """The key prefix of a golden recurrent model's initial TrainState
+    (the factorized rwkv6 shares the baseline's)."""
+    return f"ssm/{SSM_MODELS[name][0]}/init"
+
+
+def golden_ssm():
+    """{key: array} of the JAX package's recurrent families
+    (``ssm/*``)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config, reduce_for_smoke
+    from repro.data.pipeline import DataConfig, SyntheticCorpus
+    from repro.models import build_model
+    from repro.optim import Optimizer, warmup_cosine
+    from repro.serve import engine as engine_mod
+    from repro.train import create_train_state, make_train_step
+
+    out = {}
+    for name, (arch, factorized) in SSM_MODELS.items():
+        key = f"ssm/{name}"
+        cfg = ssm_config(reduce_for_smoke(get_config(arch)), factorized)
+        model = build_model(cfg)
+        opt = Optimizer(kind="adamw", lr_fn=warmup_cosine(*TRAIN_LR))
+        corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
+                                            seq_len=TRAIN_SEQ,
+                                            batch_size=TRAIN_BATCH))
+        batches = [corpus.batch(i) for i in range(SSM_TRAIN_STEPS)]
+        state = create_train_state(model, opt, jax.random.PRNGKey(0),
+                                   example_batch=batches[0])
+        params = redraw_params(jax.tree.map(np.asarray, state.params),
+                               SSM_SEED)
+        state = state._replace(params=jax.tree.map(jnp.asarray, params))
+        if not factorized:
+            out.update(train_state_arrays(state, ssm_init_prefix(name)))
+            out[f"ssm/{arch}/train/tokens"] = np.stack(
+                [b["tokens"] for b in batches])
+            out[f"ssm/{arch}/train/targets"] = np.stack(
+                [b["targets"] for b in batches])
+        logits, _ = model.forward(state.params,
+                                  tokens=jnp.asarray(batches[0]["tokens"]))
+        out[f"{key}/forward/logits"] = np.asarray(logits, np.float32)
+
+        real_time = engine_mod.time
+        engine_mod.time = FakeClock()
+        try:
+            eng = engine_mod.ServeEngine(model, state.params,
+                                         batch_slots=SERVE_SLOTS,
+                                         max_len=SERVE_MAX_LEN)
+            served = serve_engine_results(eng, engine_mod.Request)
+        finally:
+            engine_mod.time = real_time
+        out.update({f"{key}/{k}": v for k, v in served.items()})
+
+        step = jax.jit(make_train_step(model, opt))
+        rows = {k: [] for k in ("loss", "ce_loss", "grad_norm")}
+        for mon in TRAIN_MONITORS:
+            for f in ("m", "step", "sign", "cursor"):
+                rows[f"{mon}/{f}"] = []
+        for b in batches:
+            state, met = step(state, {k: jnp.asarray(v)
+                                      for k, v in b.items()})
+            for k in ("loss", "ce_loss", "grad_norm"):
+                rows[k].append(np.float32(met[k]))
+            for mon in TRAIN_MONITORS:
+                fleet = getattr(state.monitors, mon)
+                for f in ("m", "step", "sign"):
+                    rows[f"{mon}/{f}"].append(
+                        np.asarray(getattr(fleet.state, f)))
+                rows[f"{mon}/cursor"].append(np.asarray(
+                    [int(x) for x in fleet.cursor], np.int32))
+        out.update({f"{key}/train/{k}": np.stack(v)
+                    for k, v in rows.items()})
+    return out
+
+
+def ssm_train_batches(data, name):
+    """A golden recurrent model's training batches: [{tokens, targets}]
+    int32."""
+    arch = SSM_MODELS[name][0]
+    return [{"tokens": data[f"ssm/{arch}/train/tokens"][i],
+             "targets": data[f"ssm/{arch}/train/targets"][i]}
+            for i in range(SSM_TRAIN_STEPS)]
+
+
 def golden_checkpoints(root):
     """Write the JAX package's checkpoints under ``root`` (one directory
     per fleet: ``2u``, ``2u-window``, ``slo``) and return {key: array} of
@@ -1162,6 +1318,7 @@ def build(ckpt_root=None):
     arrays.update(golden_serving())
     arrays.update(golden_training(ckpt_root))
     arrays.update(golden_moe())
+    arrays.update(golden_ssm())
     return arrays
 
 
@@ -1170,7 +1327,7 @@ if __name__ == "__main__":
         os.path.abspath(__file__))), "src"))
     os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
     only = {"--only-serving": "serve/", "--only-training": "train/",
-            "--only-moe": "moe/"}
+            "--only-moe": "moe/", "--only-ssm": "ssm/"}
     if len(sys.argv) == 2 and sys.argv[1] in only:
         prefix = only[sys.argv[1]]
         with np.load(GOLDEN) as old:
@@ -1180,6 +1337,8 @@ if __name__ == "__main__":
             arrays.update(golden_serving())
         elif prefix == "moe/":
             arrays.update(golden_moe())
+        elif prefix == "ssm/":
+            arrays.update(golden_ssm())
         else:
             shutil.rmtree(os.path.join(CKPT_ROOT, "train"),
                           ignore_errors=True)

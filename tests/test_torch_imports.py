@@ -61,7 +61,9 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
               "repro_torch.models.layers.embedding",
               "repro_torch.models.layers.mlp",
               "repro_torch.models.layers.moe",
-              "repro_torch.models.layers.mla", "repro_torch.serve.engine",
+              "repro_torch.models.layers.mla",
+              "repro_torch.models.layers.mamba2",
+              "repro_torch.models.layers.rwkv6", "repro_torch.serve.engine",
               "repro_torch.launch", "repro_torch.launch.serve",
               "repro_torch.configs.qwen2_vl_2b",
               "repro_torch.configs.zamba2_2p7b", "repro_torch.configs.yi_6b",

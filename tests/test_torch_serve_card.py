@@ -18,8 +18,21 @@ CUDA device):
   ``train_step``s with each loss within 1e-5 relative (1e-4 on the
   card, as phase 14 holds later losses) and the expert-load fleet bit for
   bit after each; on the CPU and on the card.
-* The five attention-only configs and the two MoE configs, reduced
-  (float32), fresh weights from a seeded generator: ``forward`` and 8
+* The golden recurrent entries (``ssm/<name>/*``: zamba2-2.7b,
+  rwkv6-1.6b and its H1 factorized form, narrowed, every parameter
+  redrawn): the JAX package's ``TrainState`` through
+  ``train_state_from_numpy``; ``forward`` logits within 1e-4; the
+  engine's tokens, first step logits within 1e-4, summary and SLO state
+  bit for bit (the lockstep prefill advances every row's recurrent
+  state, as the JAX engine's does); four ``train_step``s with each loss
+  within 1e-5 relative (1e-4 on the card), both activation fleets' sign
+  planes and cursors bit for bit and their m and step planes within
+  SSM_STATS_REL = 1e-5 x |m| (1e-4 on the card: where the 2U tick sets
+  m to the statistic, which the chunked forward computes within float
+  rounding of the JAX package's); on the CPU and on the card.
+* The five attention-only configs, the two MoE configs and the two
+  recurrent configs, reduced (float32), fresh weights from a seeded
+  generator: ``forward`` and 8
   ``decode_step``s on the card within 1e-4 absolute of the CPU.
 * The engine on the card against the engine on the CPU under the fake
   clock, on both flush branches: tokens equal, SLO state bit for bit, one
@@ -45,9 +58,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import make_torch_port_golden as golden  # noqa: E402
 
 ARCHS = ("yi-6b", "gemma2-9b", "granite-20b", "minitron-4b", "qwen2-vl-2b",
-         "olmoe-1b-7b", "deepseek-v2-lite-16b")
+         "olmoe-1b-7b", "deepseek-v2-lite-16b", "zamba2-2.7b", "rwkv6-1.6b")
 LOGIT_TOL = 1e-4
 MOE_LOSS_REL = {"cpu": 1e-5, "cuda": 1e-4}
+SSM_STATS_REL = {"cpu": 1e-5, "cuda": 1e-4}
 
 
 def bits(x):
@@ -147,6 +161,62 @@ def test_golden_moe_entry_on_cpu(arch, monkeypatch):
 def test_golden_moe_entry_on_card(card, arch, monkeypatch):
     assert torch.backends.cuda.matmul.allow_tf32 is False
     check_golden_moe(arch, card, monkeypatch)
+
+
+def check_golden_ssm(name, device, monkeypatch):
+    from repro_torch.models.convert import train_state_from_numpy
+    from repro_torch.optim import Optimizer, warmup_cosine
+    from repro_torch.train import make_train_step
+
+    data = np.load(golden.GOLDEN)
+    key = f"ssm/{name}"
+    arch, factorized = golden.SSM_MODELS[name]
+    cfg = golden.ssm_config(reduce_for_smoke(get_config(arch)), factorized)
+    st = train_state_from_numpy(cfg, golden.train_state_tree(
+        data, golden.ssm_init_prefix(name)), device=device)
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+               for b in golden.ssm_train_batches(data, name)]
+    with torch.no_grad():
+        logits, _ = st.params(batches[0]["tokens"])
+    np.testing.assert_allclose(logits.cpu().numpy(),
+                               data[f"{key}/forward/logits"], rtol=0,
+                               atol=LOGIT_TOL)
+    monkeypatch.setattr(tengine, "time", golden.FakeClock())
+    eng = ServeEngine(st.params, batch_slots=golden.SERVE_SLOTS,
+                      max_len=golden.SERVE_MAX_LEN, device=device)
+    got = golden.serve_engine_results(eng, Request)
+    assert_golden(got, {k: data[f"{key}/{k}"] for k in got})
+    step = make_train_step(st.params, Optimizer(
+        kind="adamw", lr_fn=warmup_cosine(*golden.TRAIN_LR)))
+    kind = torch.device(device).type
+    for i, b in enumerate(batches):
+        st, met = step(st, b)
+        assert float(met["loss"]) == pytest.approx(
+            float(data[f"{key}/train/loss"][i]), rel=MOE_LOSS_REL[kind]), i
+        for mon in golden.TRAIN_MONITORS:
+            fleet, pre = getattr(st.monitors, mon), f"{key}/train/{mon}"
+            assert fleet.device.type == kind
+            np.testing.assert_array_equal(bits(fleet.state.sign),
+                                          bits(data[f"{pre}/sign"][i]))
+            scale = np.abs(data[f"{pre}/m"][i])
+            for f in ("m", "step"):
+                err = np.abs(getattr(fleet.state, f).cpu().numpy()
+                             - data[f"{pre}/{f}"][i])
+                assert (err <= SSM_STATS_REL[kind] * scale).all(), (i, f)
+            assert [int(x) for x in fleet.cursor] == \
+                data[f"{pre}/cursor"][i].tolist()
+
+
+@pytest.mark.parametrize("name", sorted(golden.SSM_MODELS))
+def test_golden_ssm_entry_on_cpu(name, monkeypatch):
+    check_golden_ssm(name, "cpu", monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(golden.SSM_MODELS))
+def test_golden_ssm_entry_on_card(card, name, monkeypatch):
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    check_golden_ssm(name, card, monkeypatch)
 
 
 def cpu_model(arch, seed=0):

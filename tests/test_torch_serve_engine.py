@@ -12,8 +12,14 @@ routes registered up front, 4200 > 4096 lanes: the sparse branch), each
 with a prompt longer than max_len (the cache write clamps). The two MoE
 configs (reduced olmoe-1b-7b, GQA and experts; reduced
 deepseek-v2-lite-16b, the MLA latent cache, whose write clamps the same
-way) on the dense branch, likewise. Also: the engine's and the
-launcher's device checks, and the launcher serving each MoE arch. The golden file's serving
+way) on the dense branch, likewise. The recurrent configs (reduced
+zamba2-2.7b, mamba2 layers and one shared attention block; reduced
+rwkv6-1.6b), every leaf of the JAX tree redrawn
+(``make_torch_port_golden.redraw_params``), likewise: their lockstep
+prefill advances every row's recurrent state, and a request admitted
+while another slot is mid-decode must see the same state the JAX
+engine's does. Also: the engine's and the launcher's device checks, and
+the launcher serving each MoE and recurrent arch. The golden file's serving
 entry and the card's runs are in ``test_torch_serve_card.py``, which
 imports no JAX.
 
@@ -24,6 +30,7 @@ import os
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -52,6 +59,7 @@ def bits(x):
 
 
 MOE_ARCHS = ("olmoe-1b-7b", "deepseek-v2-lite-16b")
+SSM_ARCHS = ("zamba2-2.7b", "rwkv6-1.6b")
 
 
 def make_pair(arch):
@@ -107,6 +115,26 @@ def test_moe_engine_matches_jax(arch, monkeypatch):
     eng = check_engine_against_jax(jm, params, tm, 5, monkeypatch)
     assert all(set(c) == ({"ckv", "kr"} if "mla" in kinds else {"k", "v"})
                for c in eng.caches)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_recurrent_engine_matches_jax(arch, monkeypatch):
+    jm = jbuild_model(jreduce(jget_config(arch)))
+    params = golden.redraw_params(
+        jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(1))), 32)
+    tm = params_from_numpy(reduce_for_smoke(get_config(arch)), params,
+                           device="cpu")
+    eng = check_engine_against_jax(jm, jax.tree.map(jnp.asarray, params),
+                                   tm, 5, monkeypatch)
+    want = {"mamba": {"ssm", "conv"}, "rwkv": {"wkv", "x_tm", "x_cm"},
+            "attn": {"k", "v"}}
+    assert all(set(c) == want[layer.kind]
+               for layer, c in zip(tm.layers, eng.caches))
+    # Hazard of the reference kept: requests were admitted (prefilled
+    # through every row) while another slot was mid-decode.
+    done = eng.done
+    assert any(a.t_first < b.t_first < a.t_done
+               for a in done for b in done if a is not b)
 
 
 def check_engine_against_jax(jm, params, tm, n_routes, monkeypatch):
@@ -172,6 +200,16 @@ def test_launcher_serves_on_cpu_and_needs_a_card_by_default(capsys,
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_launcher_serves_moe_archs_on_cpu(arch, capsys):
+    import json
+
+    launch_serve.main(["--arch", arch, "--device", "cpu", "--requests", "3",
+                       "--max-new", "3", "--slots", "2"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["arch"] == arch and out["served"] == 3
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_launcher_serves_recurrent_archs_on_cpu(arch, capsys):
     import json
 
     launch_serve.main(["--arch", arch, "--device", "cpu", "--requests", "3",

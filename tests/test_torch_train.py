@@ -31,6 +31,27 @@ Contracts and tolerances:
   checkpoint of it restored by the JAX package with equal manifests.
   The full configs' group counts: 26 x 64 = 1664 (deepseek), 16 x 64 =
   1024 (olmoe).
+* The recurrent configs, reduced (zamba2-2.7b with its shared attention
+  block; rwkv6-1.6b, and its H1 factorized form at subchunk 8), every
+  leaf of the JAX tree redrawn (``make_torch_port_golden.redraw_params``):
+  loss within LOSS_REL and gradients within GRAD_TOL as above (zamba2's
+  ``shared_block`` gradient the JAX package's, which sums its uses);
+  SSM_STEPS = 4 ``train_step``s from the JAX package's initial
+  ``TrainState`` on its batches, each loss within STEP_REL (measured
+  1.5e-7) and grad norm within SSM_GNORM_REL = 1e-4 (measured 2.2e-5 at
+  rwkv6: its gradients run through ``exp`` of cumsum differences, which
+  XLA's CPU cumsum sums in another order); after every step both
+  activation fleets' sign planes and cursors bit for bit, their m and
+  step planes within STATS_REL = 1e-5 x |m| a lane (m measured at most
+  8.4e-7 relative, on up to 17 of zamba2's 24 lanes: where the 2U tick
+  sets m to the step's statistic x and moves step by x - m, and the
+  chunked forward cannot compute x bit-identically; bit for bit
+  elsewhere); fed the
+  JAX package's own statistics of each step, the port's fleets equal
+  the JAX package's bit for bit, every plane; the state after
+  them carried to the port and back bit for bit (``shared_block`` stored
+  once, with one set of AdamW moments), and a port checkpoint of it
+  restored by the JAX package with an equal manifest.
 """
 import dataclasses
 import json
@@ -69,13 +90,24 @@ from repro_torch.optim import clipping as tclip
 from repro_torch.train import (create_train_state, make_serve_step,
                                make_train_step)
 from repro_torch.train import checkpoint as tckpt
+from repro_torch.train.train_state import clip_blocks
 from repro_torch.train.trainer import StepTimeMonitor, Trainer
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import make_torch_port_golden as golden  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
 ARCHS = ("yi-6b", "gemma2-9b", "granite-20b", "minitron-4b", "qwen2-vl-2b")
 MOE_ARCHS = ("olmoe-1b-7b", "deepseek-v2-lite-16b")
 MOE_STEPS = 4
+# name -> (arch, config overrides): the golden file's three models
+SSM_MODELS = {name: (arch, dict(rwkv_factorized=True,
+                                rwkv_subchunk=golden.SSM_SUBCHUNK)
+                     if factorized else {})
+              for name, (arch, factorized) in golden.SSM_MODELS.items()}
+SSM_STEPS = 4
+STATS_REL, SSM_GNORM_REL = 1e-5, 1e-4
 LOSS_REL, GRAD_TOL = 1e-5, 1e-4
 BF16_LOSS_REL, BF16_GRAD_TOL = 5e-4, 8e-2
 STEP_REL = 1e-5
@@ -508,6 +540,139 @@ def test_moe_train_state_crosses_both_ways(arch, tmp_path):
         manifest(tmp_path / "port", MOE_STEPS)
 
 
+# -------------------------------------------------------------- recurrent
+_SSM = {}
+
+
+def jax_ssm_run(name):
+    """The JAX package's reduced recurrent config: its initial TrainState
+    with every parameter leaf redrawn (numpy), SSM_STEPS batches of its
+    corpus (seq 32: one chunk), each step's metrics and activation
+    fleets, the state after the steps."""
+    if name in _SSM:
+        return _SSM[name]
+    arch, kw = SSM_MODELS[name]
+    jcfg, tcfg = cfgs(arch, **kw)
+    jm = jbuild_model(jcfg)
+    opt = JOptimizer(kind="adamw", lr_fn=jwarmup_cosine(1e-3, 10, 30))
+    corpus = JCorpus(JDataConfig(vocab_size=jcfg.vocab_size, seq_len=32,
+                                 batch_size=4))
+    batches = [corpus.batch(i) for i in range(SSM_STEPS)]
+    state = jcreate_train_state(jm, opt, jax.random.PRNGKey(0),
+                                example_batch=batches[0])
+    params = golden.redraw_params(jax.tree.map(np.asarray, state.params), 33)
+    state = state._replace(params=jax.tree.map(jnp.asarray, params))
+    init = jax.tree.map(np.asarray, state)
+    step = jax.jit(jmake_train_step(jm, opt))
+    loss_fn = jax.jit(jm.loss)
+    metrics, fleets, stats = [], [], []
+    for b in batches:
+        stats.append(jax.tree.map(np.asarray,
+                                  loss_fn(state.params, jbatch(b))[1]["stats"]))
+        state, met = step(state, jbatch(b))
+        metrics.append({k: float(v) for k, v in met.items()})
+        fleets.append(jax.tree.map(np.asarray, (state.monitors.act_absmax_q99,
+                                                state.monitors.act_rms_q50)))
+    _SSM[name] = (jm, tcfg, init, batches, metrics, (fleets, stats),
+                  jax.tree.map(np.asarray, state))
+    return _SSM[name]
+
+
+@pytest.mark.parametrize("name", sorted(SSM_MODELS))
+def test_recurrent_loss_and_grads_match_jax(name):
+    jm, tcfg, init, batches, *_ = jax_ssm_run(name)
+    b = batches[0]
+    (jl, jaux), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(
+        jax.tree.map(jnp.asarray, init.params), jbatch(b))
+    tm = params_from_numpy(tcfg, init.params, device="cpu")
+    tl, taux = tm.loss(tbatch(b))
+    tl.backward()
+    tl = tl.detach()
+    assert abs(float(tl) - float(jl)) <= LOSS_REL * abs(float(jl))
+    assert float(taux["aux_loss"]) == float(jaux["aux_loss"]) == 0.0
+    jgrads = flat_from_tree(tcfg, jax.tree.map(np.asarray, jg))
+    check_grads(tm, jgrads, GRAD_TOL)
+    assert ("shared_block.attn.wq" in jgrads) == tcfg.shared_attention
+
+
+def check_act_fleets(fleets, jfleets, clamped_rel=None):
+    """Activation fleets against the JAX package's: sign planes and
+    cursors bit for bit; m and step bit for bit, or, with
+    ``clamped_rel``, each lane's within that bound times its |m| (the 2U
+    tick sets m to the statistic x and moves step by x - m)."""
+    for fl, jf in zip(fleets, jfleets):
+        loose = ("m", "step") if clamped_rel else ()
+        for f in ("m", "step", "sign"):
+            if f not in loose:
+                np.testing.assert_array_equal(bits(getattr(fl.state, f)),
+                                              bits(getattr(jf.state, f)))
+        scale = np.abs(np.asarray(jf.state.m))
+        for f in loose:
+            err = np.abs(host(getattr(fl.state, f))
+                         - np.asarray(getattr(jf.state, f)))
+            assert (err <= clamped_rel * scale).all(), (f, err, scale)
+        assert [int(x) for x in fl.cursor] == \
+            [int(np.asarray(x)) for x in jf.cursor]
+
+
+@pytest.mark.parametrize("name", sorted(SSM_MODELS))
+def test_recurrent_train_steps_and_monitors_match_jax(name):
+    jm, tcfg, init, batches, metrics, (fleets, stats), _ = jax_ssm_run(name)
+    st = train_state_from_numpy(tcfg, init, device="cpu")
+    fed = tmon.init_train_monitors(st.params)
+    assert tmon.group_counts(tcfg) == (int(init.monitors.n_act_groups), 0)
+    assert st.monitors.expert_load_q99 is None
+    keys, _ = clip_blocks(st.params)
+    assert keys == tuple(sorted(init.params))
+    opt = Optimizer(kind="adamw", lr_fn=warmup_cosine(1e-3, 10, 30))
+    step = make_train_step(st.params, opt)
+    for i, b in enumerate(batches):
+        st, met = step(st, tbatch(b))
+        for k, rel in (("loss", STEP_REL), ("ce_loss", STEP_REL),
+                       ("grad_norm", SSM_GNORM_REL)):
+            assert float(met[k]) == pytest.approx(metrics[i][k],
+                                                  rel=rel), (i, k)
+        mon = st.monitors
+        check_act_fleets((mon.act_absmax_q99, mon.act_rms_q50), fleets[i],
+                         STATS_REL)
+        fed = tmon.update_train_monitors(fed, jax.tree.map(
+            lambda x: torch.from_numpy(np.array(x)), stats[i]))
+        check_act_fleets((fed.act_absmax_q99, fed.act_rms_q50), fleets[i])
+    assert fed.n_act_groups == tcfg.num_layers
+
+
+@pytest.mark.parametrize("name", ["zamba2-2.7b", "rwkv6-1.6b"])
+def test_recurrent_train_state_crosses_both_ways(name, tmp_path):
+    """The JAX state after the steps -> the port's -> the JAX layout, leaf
+    for leaf bit for bit (zamba2's ``shared_block`` once, its ``stack``
+    placeholder empty); a port checkpoint restored by the JAX package and
+    written again with an equal manifest."""
+    jm, tcfg, init, _, _, _, final = jax_ssm_run(name)
+    st = train_state_from_numpy(tcfg, final, device="cpu")
+    back = train_state_to_numpy(st)
+    if tcfg.shared_attention:
+        for tree in (back.params, back.opt_state.mu, back.opt_state.nu):
+            assert tree["stack"][0] == {} and "shared_block" in tree
+        names = list(st.opt_state.mu)
+        assert sum(n.startswith("shared_block.") for n in names) == \
+            len(jax.tree.leaves(final.params["shared_block"]))
+        assert not any(n.startswith("layers.0.") for n in names)
+    got = tckpt._flatten(tckpt._pack_sketches(back))
+    want = jax.tree_util.tree_leaves(jckpt._pack_sketches(final))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g, w = host(g), np.asarray(w)
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g.reshape(-1).view(np.uint8),
+                                      w.reshape(-1).view(np.uint8))
+    tckpt.save_train_state(str(tmp_path / "port"), SSM_STEPS, st)
+    restored, _ = jckpt.restore_checkpoint(str(tmp_path / "port"),
+                                           jax.tree.map(jnp.asarray, init))
+    jckpt.save_checkpoint(str(tmp_path / "jax"), SSM_STEPS, restored)
+    assert manifest(tmp_path / "jax", SSM_STEPS) == \
+        manifest(tmp_path / "port", SSM_STEPS)
+
+
 def test_full_config_group_counts():
     """The expert-load fleet's lanes at full width: (layer, expert) for
     every MoE layer, deepseek's dense prefix excluded."""
@@ -614,6 +779,17 @@ def test_launcher_needs_a_card_or_cpu(monkeypatch):
         launch_train.main(["--steps", "1"])
 
 
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-1.6b"])
+def test_launcher_trains_recurrent_archs_on_cpu(arch, capsys):
+    from repro_torch.launch import train as launch_train
+
+    launch_train.main(["--arch", arch, "--device", "cpu", "--steps", "4",
+                       "--batch", "2", "--seq", "16"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["arch"] == arch and out["final_step"] == 4
+    assert np.isfinite(out["last_loss"])
+
+
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_launcher_trains_moe_archs_on_cpu(arch, capsys):
     from repro_torch.launch import train as launch_train
@@ -626,8 +802,6 @@ def test_launcher_trains_moe_archs_on_cpu(arch, capsys):
 
 
 # ---------------------------------------------------------- golden entry
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-import make_torch_port_golden as golden  # noqa: E402
 
 
 def golden_run(data, device, ckpt_copy):
