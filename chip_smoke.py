@@ -106,12 +106,13 @@ each or more:
      golden file first; per workload, algo 1u / 2u and q 0.5 / 0.9 one
      FleetSpec(G, (q,), chunk_t 4096) created with the key words of
      jax.random.PRNGKey(0) and fed the numpy block: estimates equal to the
-     JAX package's (golden file) and to the plain version on the card
-     (backend "jnp"), the fraction of streams within 0.1 relative mass
-     error, B1's launches and producer (TMA where G % 4 == 0, cp.async
-     else), ms per ingest and of B1's launches alone on the stream (CUDA
-     events; at the tuned block size, as the fleet launches them),
-     items/s, B1's share of its bound, peak device memory; a
+     JAX package's (golden file), the q 0.5 fleets' planes to the plain
+     version on the card (backend "jnp"), the fraction of streams within
+     0.1 relative mass error, B1's launches and producer (TMA where
+     G % 4 == 0, cp.async else), ms per ingest and of B1's launches
+     alone on the stream (CUDA events; at the tuned block size, as the
+     fleet launches them), items/s, B1's share of its bound, peak device
+     memory; a
      FrugalEstimator (q50 and q90, 1u and 2u: B1 at G = 1) over one E3
      stream, equal to the plain version and the JAX package's; GK,
      q-digest and Selection on the first 40 E3 size streams at q = 0.5,
@@ -263,6 +264,32 @@ each or more:
      memory checked: the loss falling, the monitors positive, no frugal
      kernel launched, ms per step against its bound. (b) and (c) are the
      main path: B3 is counted from 0 around each run.
+ 17. the encoder-decoder (repro_torch.models.encdec.EncDecLM, the blocks'
+     enc_attn / dec_cross kinds, make_serve_step(encdec_memory=True), the
+     launcher's frames batch), which launches none of the port's kernels
+     (both counts set to 0 before (b) and (c) and read after): (a) the
+     golden file's reduced whisper-large-v3 at attention chunks of 16
+     (the JAX package's parameters, every leaf redrawn, encdec/* keys) on
+     the card: memory, forward logits and 12 serve_step calls' logits
+     within 1e-4 x max |value|, the greedy tokens equal, three train
+     steps from create_train_state (losses and grad norms within 1e-4
+     relative, the clip's and both activation fleets' sign planes and
+     cursors bit for bit, m and step within 1e-4 x |m|); (b)
+     whisper-large-v3 at full width (32 + 32 layers, d_model 1280, 20
+     heads of 64, d_ff 5120, vocab 51,866, tied; 1,576,752,640 float32
+     parameters from a seeded generator, bf16 activations): 8 requests in
+     two batches of 4, each batch's frames [4, 1500, 1280] from a seeded
+     generator encoded once (two attention chunks), 4-token prompts fed
+     one a call, then 60 greedy tokens through the serve step with a
+     448-row cache: ms per encode and per decode call (CUDA events),
+     tokens/s, peak memory, the call's bound (bytes against the cross
+     K/V recomputed at every call) and share, traced windows of an encode
+     and 8 calls; a fresh row's float32 decode against forward over 136
+     tokens at every position within 1e-4 x max|logit| (the bf16 gap
+     reported); (c) trained as launch/train.py trains it (8 x 64 tokens,
+     frames [8, 16, 1280], AdamW, the clip's 6 groups and 32 monitor
+     groups) for 20 steps: the loss falling, ms per step against its
+     bound.
 
 frugal_update_auto launches B1 at the roofline autotuner's block size
 (repro_torch.roofline.autotune: 256 at the shapes of phases 5 and 9,
@@ -286,6 +313,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -359,28 +387,39 @@ def device_trace(torch, fn):
     return out, names, busy / 1e3
 
 
-def say_trace(phase, names, busy_ms, window_ms, per, card, top=6):
-    """The trace's dense kernel share of ``window_ms`` and its ``top``
-    device activities, each per ``per`` (chunks). Without a trace
-    (``names`` None) the shares print as null: not measured."""
+def say_window(tag, of, names, busy_ms, window_ms, per, unit, card, top=6,
+               **fields):
+    """A traced window of ``per`` ``unit``s (chunks, calls, steps): its
+    device busy share, ``fields``, and its ``top`` device activities, each
+    per ``unit``. Without a trace (``names`` None) the share prints as
+    null: not measured."""
     if names is None:
-        say("trace", of=phase, window_ms=f"{window_ms:.4f}",
-            device_busy_ms="null", device_busy_share="null",
-            dense_kernel_ms="null", dense_kernel_share="null", card=card,
+        say(tag, check="trace", of=of, window_ms=f"{window_ms:.4f}",
+            device_busy_share="null", card=card,
             note="no device trace: not measured")
         return
-    dense = sum(ms for n, (_, ms) in names.items() if "frugal_dense" in n)
-    say("trace", of=phase, window_ms=f"{window_ms:.4f}",
-        device_busy_ms=f"{busy_ms:.4f}",
-        device_busy_share=f"{busy_ms / window_ms:.4f}",
-        dense_kernel_ms=f"{dense:.4f}",
-        dense_kernel_share=f"{dense / window_ms:.4f}", card=card,
+    say(tag, check="trace", of=of, **{f"{unit}s": per},
+        window_ms=f"{window_ms:.4f}", device_busy_ms=f"{busy_ms:.4f}",
+        device_busy_share=f"{busy_ms / window_ms:.4f}", **fields,
+        device_activities=sum(c for c, _ in names.values()), card=card,
         note="torch.profiler, CUDA activity only")
     for name, (calls, ms) in sorted(names.items(),
                                     key=lambda kv: -kv[1][1])[:top]:
-        say("trace", of=phase, activity=name[:90], calls=calls,
-            ms_per_chunk=f"{ms / per:.4f}",
+        say(tag, check="trace", of=of, activity=name[:90], calls=calls,
+            **{f"ms_per_{unit}": f"{ms / per:.4f}"},
             share=f"{ms / window_ms:.4f}")
+
+
+def say_trace(phase, names, busy_ms, window_ms, per, card, top=6):
+    """say_window of a fleet phase's ``per`` chunks, with the dense
+    kernel's share of the window."""
+    dense = {}
+    if names is not None:
+        ms = sum(ms for n, (_, ms) in names.items() if "frugal_dense" in n)
+        dense = {"dense_kernel_ms": f"{ms:.4f}",
+                 "dense_kernel_share": f"{ms / window_ms:.4f}"}
+    say_window("trace", phase, names, busy_ms, window_ms, per, "chunk", card,
+               top, **dense)
 
 
 # --------------------------------------------------------------- phase 1
@@ -2363,7 +2402,8 @@ def phase_eval(torch, gm, card):
                 n, producer, frac, check = eval_fleet(
                     torch, gm, name, items, dev_items, algo, q, key, data,
                     sorted_ss, card)
-                checks.append(check)
+                if q == gm.EVAL_QS[0]:
+                    checks.append(check)
                 launches += n
                 seen[producer] = seen.get(producer, 0) + n
                 fracs[(name, algo, q)] = frac
@@ -2395,8 +2435,11 @@ def phase_eval(torch, gm, card):
             seconds=f"{est_s:.4f}", result="bit-identical to the JAX "
             "package's")
 
-    # Every fleet and estimator again with the plain version on the card
-    # (backend "jnp"): the same bits.
+    # The fleets at the first quantile and the estimators again with the
+    # plain version on the card (backend "jnp"): the same bits. The other
+    # quantile's fleets run the same launches at the same shapes; their
+    # estimates are held to the JAX package's above. (All 18 plain runs
+    # took about 180 s, the longest part of the script.)
     plain_s = {}
     for tag, fleet, plain in checks:
         t0 = time.perf_counter()
@@ -3402,16 +3445,8 @@ def serve_trace(torch, model, names, rng, card, tag="serve"):
 
     calls = SERVE_SLOTS * prompt + 1
     adm_ms, adm_names, adm_busy = device_trace(torch, admission)
-    if adm_names is not None:
-        say(tag, check="trace", of="admission step", decode_calls=calls,
-            window_ms=f"{adm_ms:.3f}", ms_per_call=f"{adm_ms / calls:.4f}",
-            device_busy_ms_per_call=f"{adm_busy / calls:.4f}",
-            device_busy_share=f"{adm_busy / adm_ms:.4f}", card=card)
-        for name, (n, ms) in sorted(adm_names.items(),
-                                    key=lambda kv: -kv[1][1])[:4]:
-            say(tag, check="trace", of="admission step",
-                activity=name[:90], calls=n,
-                ms_per_call=f"{ms / calls:.4f}")
+    say_window(tag, "admission step", adm_names, adm_busy, adm_ms, calls,
+               "call", card, top=4)
     eng.step()
     torch.cuda.synchronize()
 
@@ -3425,24 +3460,15 @@ def serve_trace(torch, model, names, rng, card, tag="serve"):
 
     window_ms, names_ms, busy_ms = device_trace(torch, window)
     if names_ms is None:
-        say(tag, check="trace", steps=SERVE_TRACE_STEPS,
-            window_ms=f"{window_ms:.3f}", device_busy_share="null",
-            note="no device trace: not measured", card=card)
+        say_window(tag, "decode steps", None, None, window_ms,
+                   SERVE_TRACE_STEPS, "step", card)
         return None
     b3_ms = sum(ms for n, (_, ms) in names_ms.items()
-                if "frugal_scatter" in n)
-    say(tag, check="trace", steps=SERVE_TRACE_STEPS,
-        window_ms=f"{window_ms:.3f}", device_busy_ms=f"{busy_ms:.3f}",
-        device_busy_share=f"{busy_ms / window_ms:.4f}",
-        b3_ms_per_flush=f"{b3_ms / SERVE_TRACE_STEPS:.5f}",
-        note="torch.profiler, CUDA activity only; each step one decode "
-             "call and one SLO flush", card=card)
-    for name, (calls, ms) in sorted(names_ms.items(),
-                                    key=lambda kv: -kv[1][1])[:8]:
-        say(tag, check="trace", activity=name[:90], calls=calls,
-            ms_per_step=f"{ms / SERVE_TRACE_STEPS:.4f}",
-            share=f"{ms / window_ms:.4f}")
-    return b3_ms / SERVE_TRACE_STEPS
+                if "frugal_scatter" in n) / SERVE_TRACE_STEPS
+    say_window(tag, "decode steps", names_ms, busy_ms, window_ms,
+               SERVE_TRACE_STEPS, "step", card, top=8,
+               b3_ms_per_flush=f"{b3_ms:.5f}")
+    return b3_ms
 
 
 @contextlib.contextmanager
@@ -3452,12 +3478,13 @@ def config_override(model, **changes):
     weights, nothing copied."""
     old = model.cfg
     cfg = dataclasses.replace(old, **changes)
-    for m in (model, *model.layers):
+    mods = [m for m in model.modules() if hasattr(m, "cfg")]
+    for m in mods:
         m.cfg = cfg
     try:
         yield model
     finally:
-        for m in (model, *model.layers):
+        for m in mods:
             m.cfg = old
 
 
@@ -3841,43 +3868,59 @@ def train_activity_kind(name: str) -> str:
     return "other"
 
 
-def train_bound(model, cfg, tokens):
+def train_bound(model, cfg, tokens, tokens_of=None):
     """(bytes, operations, bound ms, which term, bytes ms, operations ms)
     of one AdamW training step: the step's inputs and outputs moved once
     (float32 params and both moments read and written, 24 B a
     parameter), and 6 x tokens x the matmul parameters a token uses (no
-    embedding gather, no norms; a MoE layer's experts at top-k of E):
-    bf16 at the gpu-h100 HwSpec's peak, the float32 LM head (TF32 off;
-    the embedding when tied) at H100_F32_FLOPS."""
+    embedding or position gather, no norms; a MoE layer's experts at
+    top-k of E): bf16 at the gpu-h100 HwSpec's peak, the float32 LM head
+    (TF32 off; the embedding when tied) at H100_F32_FLOPS. A matmul
+    parameter sees ``tokens_of(name)`` tokens where that is given (an
+    encoder's frames), else ``tokens``."""
     from repro_torch.roofline import hw_for
 
     hw = hw_for("gpu-h100")
     head_name = "embed" if cfg.tie_embeddings else "lm_head"
-    n = dense = expert = head = 0
+    n = ops_bf16 = ops_f32 = 0
     for name, p in model.named_parameters():
         n += p.numel()
         if name.startswith(head_name):
-            head += p.numel()
-        elif ".moe.w_" in name:
-            expert += p.numel()
-        elif not (name.startswith("embed") or "norm" in name):
-            dense += p.numel()
-    if expert:
-        dense += expert * cfg.moe_topk // cfg.moe_experts
-    ops_bf16, ops_f32 = 6 * dense * tokens, 6 * head * tokens
+            ops_f32 += 6 * p.numel() * tokens
+        elif not (name.startswith(("embed", "pos", "dec_pos"))
+                  or "norm" in name):
+            used = p.numel() * cfg.moe_topk // cfg.moe_experts \
+                if ".moe.w_" in name else p.numel()
+            ops_bf16 += 6 * used * (tokens_of(name) if tokens_of else tokens)
     bytes_ms = 24 * n / hw.hbm_bw * 1e3
     ops_ms = (ops_bf16 / hw.peak_flops + ops_f32 / H100_F32_FLOPS) * 1e3
     return 24 * n, ops_bf16 + ops_f32, max(bytes_ms, ops_ms), \
         "bytes" if bytes_ms >= ops_ms else "operations", bytes_ms, ops_ms
 
 
-def train_full(torch, card):
-    """(b) qwen2-vl-2b at full width, float32 parameters from a seeded
-    generator, AdamW, quantile clip and monitors on, SyntheticCorpus at
-    TRAIN_BATCH x TRAIN_SEQ: Trainer.run for TRAIN_STEPS steps, then a
-    traced window of TRAIN_TRACE_STEPS more steps."""
+def train_at_width(torch, card, tag, part, arch, cfg, steps, lr, model_ok, *,
+                   need=0, batches=None, tokens_of=None, trace_steps=0,
+                   checks=None, **fields):
+    """Train ``cfg`` on the card as launch/train.py does, after the earlier
+    phases' memory is released and ``need`` bytes (and MEM_HEADROOM) are
+    found free: float32 parameters from a generator seeded with
+    TRAIN_SEED, AdamW under warmup_cosine(*lr), the quantile clip and the
+    monitors on, SyntheticCorpus batches of TRAIN_BATCH x TRAIN_SEQ (each
+    passed through ``batches`` where given: launch.train.with_frames),
+    Trainer.run for ``steps`` steps with CUDA events around each step
+    call. Fails unless ``model_ok(model)`` holds (``arch`` at full width
+    in float32), the run took ``steps`` steps with finite losses and grad
+    norms, the loss fell (the mean of the last five below that of the
+    first five), the clip's warmup counted every step, and every
+    activation monitor's estimate is positive, one group a (decoder)
+    layer. ``checks(run)`` checks the finished run further (a namespace:
+    model, cfg, state, hist) and returns fields for the last line. Prints
+    ``fields``, ms per step
+    (the host clock after step 5, and events), tokens/s, peak memory,
+    train_bound and its share, and the losses; then traces
+    ``trace_steps`` more steps. Result lines start with ``tag`` and
+    check ``part``."""
     import numpy as np
-    from repro_torch.configs import get_config
     from repro_torch.core import rng as crng
     from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
     from repro_torch.models import build_model
@@ -3886,29 +3929,31 @@ def train_full(torch, card):
     from repro_torch.train import create_train_state, make_train_step
     from repro_torch.train.trainer import Trainer
 
-    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
     gc.collect()            # earlier phases' engines sit in reference cycles
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    cfg = get_config(TRAIN_ARCH)
+    free, total = torch.cuda.mem_get_info()
+    if free < need + MEM_HEADROOM:
+        fail(f"{tag} ({part}): {free} bytes free of {total}, training needs "
+             f"about {need} and {MEM_HEADROOM} to run")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(TRAIN_SEED)
     model = build_model(cfg, device="cuda", generator=gen)
     n_params = sum(p.numel() for p in model.parameters())
-    if (len(model.layers), cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-            cfg.d_ff, cfg.vocab_size, cfg.pos_type, cfg.tie_embeddings) != \
-            (28, 1536, 12, 2, 8960, 151936, "mrope", True) \
+    if not model_ok(model) \
             or next(model.parameters()).dtype != torch.float32:
-        fail("training (b): the model is not qwen2-vl-2b at full width in "
-             "float32")
-    opt = Optimizer(kind="adamw", lr_fn=warmup_cosine(*TRAIN_LR))
+        fail(f"{tag} ({part}): the model ({n_params} parameters) is not "
+             f"{arch} in float32")
+    batches = batches or (lambda it: it)
+    opt = Optimizer(kind="adamw", lr_fn=warmup_cosine(*lr))
     corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
                                         seq_len=TRAIN_SEQ,
                                         batch_size=TRAIN_BATCH,
                                         seed=TRAIN_SEED))
-    example = next(corpus.iterate(prefetch=0, device="cuda"))
+    example = next(batches(corpus.iterate(prefetch=0, device="cuda")))
     state = create_train_state(model, opt, crng.prng_key(TRAIN_SEED),
                                example_batch=example)
     step_fn = make_train_step(model, opt)
@@ -3923,118 +3968,132 @@ def train_full(torch, card):
         events.append((a, b))
         return out
 
-    it = corpus.iterate(device="cuda")
-    log = []
+    it = batches(corpus.iterate(device="cuda"))
     trainer = Trainer(model, opt, timed_step, it, log_every=10,
-                      log_fn=log.append)
-    t0 = time.perf_counter()
-    state = trainer.run(state, TRAIN_STEPS)
+                      log_fn=lambda line: None)
+    t_run = time.perf_counter()
+    state = trainer.run(state, steps)
     torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
+    run_s = time.perf_counter() - t_run
     peak = torch.cuda.max_memory_allocated()
     hist = trainer.metrics_history
     losses = [m["loss"] for m in hist]
-    if len(hist) != TRAIN_STEPS or state.step != TRAIN_STEPS:
-        fail(f"training (b): {len(hist)} steps, state at {state.step}")
+    if len(hist) != steps or state.step != steps:
+        fail(f"{tag} ({part}): {len(hist)} steps, state at {state.step}")
     if not all(np.isfinite(losses)) or not all(
             np.isfinite(m["grad_norm"]) for m in hist):
-        fail(f"training (b): non-finite loss or grad norm: {losses}")
+        fail(f"{tag} ({part}): non-finite loss or grad norm: {losses}")
     first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     if not last5 < first5:
-        fail(f"training (b): the loss did not fall ({first5} -> {last5})")
-    m_clip = state.qclip.sketch.m.cpu().numpy()
-    if state.qclip.warmup != TRAIN_STEPS or not np.any(
-            np.abs(m_clip - 1.0) > 1e-3):
-        fail(f"training (b): the clip did not engage (warmup "
-             f"{state.qclip.warmup}, m {m_clip.tolist()})")
-    summ = {k: v.cpu().numpy() for k, v in
-            monitor_summary(state.monitors).items()}
-    if summ["act_absmax_q99"].shape != (28,) or not (
-            np.all(summ["act_absmax_q99"] > 0)
-            and np.all(summ["act_rms_q50"] > 0)):
-        fail(f"training (b): monitors not positive: {summ}")
-    dev_ms = [a.elapsed_time(b) for a, b in events]
+        fail(f"{tag} ({part}): the loss did not fall ({first5} -> {last5})")
+    summ = {k: v for k, v in monitor_summary(state.monitors).items()
+            if k.startswith("act_")}
+    mon_min = min(float(v.min()) for v in summ.values())
+    groups = cfg.dec_layers if cfg.is_encdec else cfg.num_layers
+    if state.qclip.warmup != steps or not mon_min > 0 \
+            or state.monitors.n_act_groups != groups \
+            or any(v.shape != (groups,) for v in summ.values()):
+        fail(f"{tag} ({part}): clip warmup {state.qclip.warmup}, "
+             f"activation monitors {summ}")
+    run = types.SimpleNamespace(model=model, cfg=cfg, state=state, hist=hist)
+    extra = checks(run) if checks else {}
     host_ms = [m["step_time_s"] * 1e3 for m in hist]
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    dev_ms = [a.elapsed_time(b) for a, b in events]
     steady = host_ms[5:]
-    nbytes, nops, bound_ms, bound_by, bytes_ms, ops_ms = train_bound(
-        model, cfg, tokens)
     step_ms = statistics.median(steady)
-    say("train", check="b", arch=TRAIN_ARCH, layers=len(model.layers),
-        d_model=cfg.d_model, heads=f"{cfg.num_heads}/{cfg.num_kv_heads}",
-        d_ff=cfg.d_ff, vocab=cfg.vocab_size, params=n_params,
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    nbytes, nops, bound_ms, bound_by, bytes_ms, ops_ms = train_bound(
+        model, cfg, tokens, tokens_of)
+    say(tag, check=part, arch=arch, **fields, params=n_params,
         param_dtype="float32", activations=cfg.dtype, optimizer="adamw",
-        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
-        run_s=f"{run_s:.3f}", card=card)
-    say("train", check="b", step_ms_host_median_steps_6_30=f"{step_ms:.3f}",
-        step_ms_host_p10_p90=f"{pct(steady, 10):.3f},{pct(steady, 90):.3f}",
-        step_ms_host_first=f"{host_ms[0]:.3f}",
-        step_ms_device_median_steps_6_30=f"{statistics.median(dev_ms[5:]):.3f}",
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=steps, run_s=f"{run_s:.3f}",
+        free_before_bytes=free, card=card)
+    say(tag, check=part, **{
+        f"step_ms_host_median_steps_6_{steps}": f"{step_ms:.3f}",
+        "step_ms_host_p10_p90": f"{pct(steady, 10):.3f},"
+                                f"{pct(steady, 90):.3f}",
+        "step_ms_host_first": f"{host_ms[0]:.3f}",
+        f"step_ms_device_median_steps_6_{steps}":
+            f"{statistics.median(dev_ms[5:]):.3f}"},
         tokens_per_s=f"{tokens / step_ms * 1e3:.1f}",
         max_memory_allocated_bytes=peak, held_before_bytes=held,
         peak_of_training_bytes=peak - held,
         note="host: the trainer's clock around the step, which ends in the "
              "metrics' host copy; device: CUDA events around the step call; "
              "memory: the peak less what was allocated before the model")
-    say("train", check="b", step_bytes=nbytes, step_operations=nops,
+    say(tag, check=part, step_bytes=nbytes, step_operations=nops,
         bytes_bound_ms=f"{bytes_ms:.3f}", operations_bound_ms=f"{ops_ms:.3f}",
         step_bound_ms=f"{bound_ms:.3f}", bound_by=bound_by,
         step_bound_share=f"{bound_ms / step_ms:.4f}",
-        bound_note="24 B/param (params and moments in and out) over the "
-                   "gpu-h100 HwSpec's 3.35 TB/s; 6 x params x tokens "
-                   "matmul operations, bf16 at 989 TFLOP/s, the float32 "
-                   "LM head at 67 TFLOP/s")
-    say("train", check="b", first_loss=f"{losses[0]:.4f}",
+        bound_note="train_bound: 24 B a parameter (params and moments in and "
+                   "out) over 3.35 TB/s; 6 x tokens x matmul parameters, "
+                   "bf16 at 989 TFLOP/s, the float32 LM head at 67")
+    say(tag, check=part, first_loss=f"{losses[0]:.4f}",
         last_loss=f"{losses[-1]:.4f}", mean_first5=f"{first5:.4f}",
         mean_last5=f"{last5:.4f}", qclip_warmup=state.qclip.warmup,
-        qclip_m=",".join(f"{x:.4f}" for x in m_clip),
-        clip_blocks="embed,final_norm,prefix,stack",
+        clip_groups=int(state.qclip.sketch.m.shape[0]),
         grad_norm_first_last=f"{hist[0]['grad_norm']:.4f},"
                              f"{hist[-1]['grad_norm']:.4f}",
-        monitors_absmax_q99_min_max=f"{summ['act_absmax_q99'].min():.4f},"
-                                    f"{summ['act_absmax_q99'].max():.4f}",
-        monitors_rms_q50_min_max=f"{summ['act_rms_q50'].min():.4f},"
-                                 f"{summ['act_rms_q50'].max():.4f}",
+        act_groups=state.monitors.n_act_groups,
+        monitors_min_estimate=f"{mon_min:.5f}", **extra,
         stragglers=sum(m["straggler"] for m in hist),
         step_time_q99_ms=f"{trainer.step_monitor.q99_ms:.3f}")
 
     def window():
         nonlocal state
-        t = time.perf_counter()
-        for _ in range(TRAIN_TRACE_STEPS):
+        for _ in range(trace_steps):
             state, met = step_fn(state, next(it))
             float(met["loss"])
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) * 1e3
 
-    window_ms, names, busy_ms = device_trace(torch, window)
-    if names is None:
-        say("train", check="trace", steps=TRAIN_TRACE_STEPS,
-            window_ms=f"{window_ms:.3f}", device_busy_share="null",
-            note="no device trace: not measured", card=card)
-    else:
-        say("train", check="trace", steps=TRAIN_TRACE_STEPS,
-            window_ms=f"{window_ms:.3f}", device_busy_ms=f"{busy_ms:.3f}",
-            device_busy_share=f"{busy_ms / window_ms:.4f}",
-            device_activities=sum(c for c, _ in names.values()),
-            note="torch.profiler, CUDA activity only", card=card)
-        kinds = collections.Counter()
-        for name, (_, ms) in names.items():
-            kinds[train_activity_kind(name)] += ms / TRAIN_TRACE_STEPS
-        say("train", check="trace", ms_per_step_by_kind=json.dumps(
-            {k: round(v, 4) for k, v in kinds.most_common()}),
-            note="matmul: gemm kernels; copy: casts and copies; "
-                 "elementwise: the rest of the pointwise kernels (AdamW, "
-                 "the clip, activations); reduce: reductions")
-        for name, (calls, ms) in sorted(names.items(),
-                                        key=lambda kv: -kv[1][1])[:10]:
-            say("train", check="trace", activity=name[:90], calls=calls,
-                ms_per_step=f"{ms / TRAIN_TRACE_STEPS:.4f}",
-                share=f"{ms / window_ms:.4f}")
-    del state, model, trainer, step_fn
+    if trace_steps:
+        window_ms, names, busy_ms = device_trace(
+            torch, lambda: timed(torch, window)[1])
+        say_window(tag, "train steps", names, busy_ms, window_ms,
+                   trace_steps, "step", card, top=10)
+        if names is not None:
+            kinds = collections.Counter()
+            for name, (_, ms) in names.items():
+                kinds[train_activity_kind(name)] += ms / trace_steps
+            say(tag, check="trace", ms_per_step_by_kind=json.dumps(
+                {k: round(v, 4) for k, v in kinds.most_common()}),
+                note="matmul: gemm kernels; copy: casts and copies; "
+                     "elementwise: the rest of the pointwise kernels "
+                     "(AdamW, the clip, activations); reduce: reductions")
+    del run, state, model, trainer, step_fn
     gc.collect()
     torch.cuda.empty_cache()
-    say("train", check="b", phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    say(tag, check=part, part_s=f"{time.perf_counter() - t0:.1f}")
+
+
+def train_full(torch, card):
+    """(b) qwen2-vl-2b at full width through train_at_width for
+    TRAIN_STEPS steps (the clip's estimates moved off their start), then
+    a traced window of TRAIN_TRACE_STEPS more steps."""
+    import numpy as np
+    from repro_torch.configs import get_config
+
+    def model_ok(model):
+        cfg = model.cfg
+        return (len(model.layers), cfg.d_model, cfg.num_heads,
+                cfg.num_kv_heads, cfg.d_ff, cfg.vocab_size, cfg.pos_type,
+                cfg.tie_embeddings) == \
+            (28, 1536, 12, 2, 8960, 151936, "mrope", True)
+
+    def checks(run):
+        m_clip = run.state.qclip.sketch.m.cpu().numpy()
+        if not np.any(np.abs(m_clip - 1.0) > 1e-3):
+            fail(f"training (b): the clip did not engage (m "
+                 f"{m_clip.tolist()})")
+        return {"qclip_m": ",".join(f"{x:.4f}" for x in m_clip),
+                "clip_blocks": "embed,final_norm,prefix,stack"}
+
+    cfg = get_config(TRAIN_ARCH)
+    train_at_width(torch, card, "train", "b", f"{TRAIN_ARCH} full width",
+                   cfg, TRAIN_STEPS, TRAIN_LR, model_ok, checks=checks,
+                   trace_steps=TRAIN_TRACE_STEPS, layers=cfg.num_layers,
+                   d_model=cfg.d_model,
+                   heads=f"{cfg.num_heads}/{cfg.num_kv_heads}",
+                   d_ff=cfg.d_ff, vocab=cfg.vocab_size)
 
 
 def train_launcher(card):
@@ -4185,150 +4244,78 @@ def moe_golden(torch, gm, card):
 
 def moe_train(torch, card):
     """(d) olmoe at full width with its depth cut to MOE_TRAIN_LAYERS
-    layers (all 16 with AdamW would need 110.7 GB), float32 parameters
-    from a seeded generator, AdamW, quantile clip and monitors on,
-    SyntheticCorpus at TRAIN_BATCH x TRAIN_SEQ: Trainer.run for
-    MOE_TRAIN_STEPS steps; the loss falling, the aux loss positive, the
-    expert-load fleet's MOE_TRAIN_LAYERS x 64 lanes bit-identical to a
-    CPU fleet replaying the loads each step fed it (recorded on the
+    layers (all 16 with AdamW would need 110.7 GB) through train_at_width
+    for MOE_TRAIN_STEPS steps: besides its checks, the aux loss positive,
+    the expert-load fleet's MOE_TRAIN_LAYERS x 64 lanes bit-identical to
+    a CPU fleet replaying the loads each step fed it (recorded on the
     host), its q99s in [0, 1], load_imbalance. An expert that no token
     chose in any step (a dead expert of a random router) keeps q99 0."""
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.core import rng as crng
-    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
-    from repro_torch.models import build_model
     from repro_torch.monitor import load_imbalance, monitor_summary
     from repro_torch.monitor import registry
-    from repro_torch.optim import Optimizer, warmup_cosine
-    from repro_torch.train import create_train_state, make_train_step
     from repro_torch.train import steps as steps_mod
-    from repro_torch.train.trainer import Trainer
 
-    t0 = time.perf_counter()
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
     cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH),
                               num_layers=MOE_TRAIN_LAYERS)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(TRAIN_SEED)
-    model = build_model(cfg, device="cuda", generator=gen)
-    n_params = sum(p.numel() for p in model.parameters())
+    lanes = MOE_TRAIN_LAYERS * cfg.moe_experts
     widths = {k: v for k, v in MOE_FULL[MOE_TRAIN_ARCH].items()
               if k != "layers"}
-    if len(model.layers) != MOE_TRAIN_LAYERS or any(
-            getattr(cfg, k) != v for k, v in widths.items()):
-        fail("moe (d): the model is not olmoe at full width")
-    opt = Optimizer(kind="adamw", lr_fn=warmup_cosine(*MOE_TRAIN_LR))
-    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
-                                        seq_len=TRAIN_SEQ,
-                                        batch_size=TRAIN_BATCH,
-                                        seed=TRAIN_SEED))
-    example = next(corpus.iterate(prefetch=0, device="cuda"))
-    state = create_train_state(model, opt, crng.prng_key(TRAIN_SEED),
-                               example_batch=example)
-    lanes = MOE_TRAIN_LAYERS * cfg.moe_experts
-    if state.monitors.n_moe_groups != lanes \
-            or state.monitors.expert_load_q99.num_groups != lanes:
-        fail(f"moe (d): {state.monitors.n_moe_groups} expert-load groups, "
-             f"expected {lanes}")
-    step_fn = make_train_step(model, opt)
-    events = []
-
-    def timed_step(st, batch):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = step_fn(st, batch)
-        b.record()
-        events.append((a, b))
-        return out
-
     fed, update = [], steps_mod.update_train_monitors
 
     def update_recorded(mon, stats):
         fed.append(registry._flatten_stats(stats)[2].cpu())
         return update(mon, stats)
 
-    trainer = Trainer(model, opt, timed_step, corpus.iterate(device="cuda"),
-                      log_every=10, log_fn=lambda line: None)
+    def checks(run):
+        mon = run.state.monitors
+        if mon.n_moe_groups != lanes \
+                or mon.expert_load_q99.num_groups != lanes:
+            fail(f"moe (d): {mon.n_moe_groups} expert-load groups, "
+                 f"expected {lanes}")
+        aux = [m["aux_loss"] for m in run.hist]
+        if not all(a > 0 for a in aux):
+            fail(f"moe (d): aux losses {aux}")
+        plain = registry.make_fleet(lanes, 0.99, registry.SEED_MOE,
+                                    device="cpu")
+        for loads in fed:
+            plain = plain.tick_lanes(loads)
+        if len(fed) != MOE_TRAIN_STEPS or not all(
+                same_bits(torch, getattr(mon.expert_load_q99.state, f).cpu(),
+                          getattr(plain.state, f))
+                for f in ("m", "step", "sign")):
+            fail(f"moe (d): the expert-load fleet differs from a CPU fleet "
+                 f"fed the {len(fed)} recorded steps' loads")
+        q99 = monitor_summary(mon)["expert_load_q99"]
+        imbalance = float(load_imbalance(q99, cfg.moe_experts))
+        q99 = q99.cpu().numpy()
+        if q99.shape != (lanes,) or not (np.all((q99 >= 0) & (q99 <= 1))
+                                         and q99.max() > 0) \
+                or not (np.isfinite(imbalance) and imbalance >= 1.0):
+            fail(f"moe (d): expert-load q99s {q99.tolist()}, imbalance "
+                 f"{imbalance}")
+        return {"aux_loss_first_last": f"{aux[0]:.5f},{aux[-1]:.5f}",
+                "expert_load_lanes": lanes,
+                "expert_load_fleet": "bit-identical to a CPU fleet "
+                                     "replaying the recorded loads",
+                "expert_load_q99_min_max": f"{q99.min():.5f},{q99.max():.5f}",
+                "lanes_q99_zero": int((q99 == 0).sum()),
+                "lanes_never_loaded": int((torch.stack(fed) == 0).all(0)
+                                          .sum()),
+                "load_imbalance": f"{imbalance:.4f}"}
+
     steps_mod.update_train_monitors = update_recorded
     try:
-        t_run = time.perf_counter()
-        state = trainer.run(state, MOE_TRAIN_STEPS)
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t_run
+        train_at_width(
+            torch, card, "moe", "d", f"{MOE_TRAIN_ARCH} full width, depth cut",
+            cfg, MOE_TRAIN_STEPS, MOE_TRAIN_LR,
+            lambda m: len(m.layers) == MOE_TRAIN_LAYERS and all(
+                getattr(cfg, k) == v for k, v in widths.items()),
+            checks=checks, layers=MOE_TRAIN_LAYERS,
+            reduced=f"num_layers 16 -> {MOE_TRAIN_LAYERS} (AdamW state of "
+                    "all 16: 110.7 GB)")
     finally:
         steps_mod.update_train_monitors = update
-    peak = torch.cuda.max_memory_allocated()
-    hist = trainer.metrics_history
-    losses = [m["loss"] for m in hist]
-    if len(hist) != MOE_TRAIN_STEPS or not all(np.isfinite(losses)):
-        fail(f"moe (d): {len(hist)} steps, losses {losses}")
-    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    if not last5 < first5:
-        fail(f"moe (d): the loss did not fall ({first5} -> {last5})")
-    aux = [m["aux_loss"] for m in hist]
-    if not all(a > 0 for a in aux):
-        fail(f"moe (d): aux losses {aux}")
-    fleet = state.monitors.expert_load_q99
-    plain = registry.make_fleet(lanes, 0.99, registry.SEED_MOE,
-                                device="cpu")
-    for loads in fed:
-        plain = plain.tick_lanes(loads)
-    if len(fed) != MOE_TRAIN_STEPS or not all(
-            same_bits(torch, getattr(fleet.state, f).cpu(),
-                      getattr(plain.state, f)) for f in ("m", "step", "sign")):
-        fail(f"moe (d): the expert-load fleet differs from a CPU fleet fed "
-             f"the {len(fed)} recorded steps' loads")
-    q99 = monitor_summary(state.monitors)["expert_load_q99"]
-    imbalance = float(load_imbalance(q99, cfg.moe_experts))
-    q99 = q99.cpu().numpy()
-    never = int((torch.stack(fed) == 0).all(0).sum())
-    if q99.shape != (lanes,) or not (np.all((q99 >= 0) & (q99 <= 1))
-                                     and q99.max() > 0) \
-            or not (np.isfinite(imbalance) and imbalance >= 1.0):
-        fail(f"moe (d): expert-load q99s {q99.tolist()}, imbalance "
-             f"{imbalance}")
-    host_ms = [m["step_time_s"] * 1e3 for m in hist]
-    dev_ms = [a.elapsed_time(b) for a, b in events]
-    steady = host_ms[5:]
-    step_ms = statistics.median(steady)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    nbytes, nops, bound_ms, bound_by, bytes_ms, ops_ms = train_bound(
-        model, cfg, tokens)
-    say("moe", check="d", arch=f"{MOE_TRAIN_ARCH} full width, depth cut",
-        layers=MOE_TRAIN_LAYERS, reduced=f"num_layers 16 -> "
-        f"{MOE_TRAIN_LAYERS} (AdamW state of all 16: 110.7 GB)",
-        params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-        steps=MOE_TRAIN_STEPS, run_s=f"{run_s:.3f}", card=card)
-    say("moe", check="d", step_ms_host_median_steps_6_20=f"{step_ms:.3f}",
-        step_ms_host_p10_p90=f"{pct(steady, 10):.3f},{pct(steady, 90):.3f}",
-        step_ms_host_first=f"{host_ms[0]:.3f}",
-        step_ms_device_median_steps_6_20=f"{statistics.median(dev_ms[5:]):.3f}",
-        tokens_per_s=f"{tokens / step_ms * 1e3:.1f}",
-        max_memory_allocated_bytes=peak, held_before_bytes=held,
-        peak_of_training_bytes=peak - held, step_bytes=nbytes,
-        step_operations=nops, bytes_bound_ms=f"{bytes_ms:.3f}",
-        operations_bound_ms=f"{ops_ms:.3f}", step_bound_ms=f"{bound_ms:.3f}",
-        bound_by=bound_by, step_bound_share=f"{bound_ms / step_ms:.4f}")
-    say("moe", check="d", first_loss=f"{losses[0]:.4f}",
-        last_loss=f"{losses[-1]:.4f}", mean_first5=f"{first5:.4f}",
-        mean_last5=f"{last5:.4f}", aux_loss_first_last=f"{aux[0]:.5f},"
-        f"{aux[-1]:.5f}", qclip_warmup=state.qclip.warmup,
-        expert_load_lanes=lanes, expert_load_fleet="bit-identical to a CPU "
-        "fleet replaying the recorded loads",
-        expert_load_q99_min_max=f"{q99.min():.5f},{q99.max():.5f}",
-        lanes_q99_zero=int((q99 == 0).sum()), lanes_never_loaded=never,
-        load_imbalance=f"{imbalance:.4f}",
-        stragglers=sum(m["straggler"] for m in hist),
-        part_s=f"{time.perf_counter() - t0:.1f}")
-    del state, model, trainer, step_fn
-    gc.collect()
-    torch.cuda.empty_cache()
 
 
 def phase_moe(torch, gm, card):
@@ -4459,123 +4446,26 @@ def ssm_golden(torch, gm, card):
 
 
 def ssm_train(torch, card):
-    """(d) rwkv6-1.6b at full width, float32 parameters from a seeded
-    generator, AdamW, quantile clip and monitors on, SyntheticCorpus at
-    TRAIN_BATCH x TRAIN_SEQ: Trainer.run for SSM_TRAIN_STEPS steps after
-    the earlier phases' memory is released and the free memory checked
-    (parameters, gradients and moments, and 24 layers' chunked-WKV decay
-    tensors kept for the backward); the loss falling, the monitors
-    positive, ms per step against train_bound."""
-    import numpy as np
+    """(d) rwkv6-1.6b at full width through train_at_width for
+    SSM_TRAIN_STEPS steps, once the memory it needs is free: parameters,
+    gradients and moments, and 24 layers' chunked-WKV decay tensors kept
+    for the backward (train_bound does not count the chunked WKV's float32
+    einsums)."""
     from repro_torch.configs import get_config
-    from repro_torch.core import rng as crng
-    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
-    from repro_torch.models import build_model
-    from repro_torch.monitor.registry import monitor_summary
-    from repro_torch.optim import Optimizer, warmup_cosine
-    from repro_torch.train import create_train_state, make_train_step
-    from repro_torch.train.trainer import Trainer
 
-    t0 = time.perf_counter()
-    gc.collect()            # earlier engines sit in reference cycles
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
     cfg = get_config(SSM_TRAIN_ARCH)
     # [1, B, H, c, c, n] float32 decay, its exp and the einsum's product
     # kept per layer (c = TRAIN_SEQ, one chunk)
     n = cfg.rwkv_head_size
     decay = 4 * TRAIN_BATCH * (cfg.d_model // n) * TRAIN_SEQ ** 2 * n
-    need = 16 * cfg.n_params() + 3 * cfg.num_layers * decay
-    free, total = torch.cuda.mem_get_info()
-    if free < need + MEM_HEADROOM:
-        fail(f"ssm (d): {free} bytes free of {total}, training needs about "
-             f"{need} and {MEM_HEADROOM} to run")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(TRAIN_SEED)
-    model = build_model(cfg, device="cuda", generator=gen)
-    n_params = sum(p.numel() for p in model.parameters())
-    widths = {k: v for k, v in SSM_FULL[SSM_TRAIN_ARCH].items()
-              if k != "layers"}
-    if len(model.layers) != SSM_FULL[SSM_TRAIN_ARCH]["layers"] or any(
-            getattr(cfg, k) != v for k, v in widths.items()):
-        fail("ssm (d): the model is not rwkv6-1.6b at full width")
-    opt = Optimizer(kind="adamw", lr_fn=warmup_cosine(*SSM_TRAIN_LR))
-    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
-                                        seq_len=TRAIN_SEQ,
-                                        batch_size=TRAIN_BATCH,
-                                        seed=TRAIN_SEED))
-    example = next(corpus.iterate(prefetch=0, device="cuda"))
-    state = create_train_state(model, opt, crng.prng_key(TRAIN_SEED),
-                               example_batch=example)
-    step_fn = make_train_step(model, opt)
-    events = []
-
-    def timed_step(st, batch):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = step_fn(st, batch)
-        b.record()
-        events.append((a, b))
-        return out
-
-    trainer = Trainer(model, opt, timed_step, corpus.iterate(device="cuda"),
-                      log_every=10, log_fn=lambda line: None)
-    t_run = time.perf_counter()
-    state = trainer.run(state, SSM_TRAIN_STEPS)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t_run
-    peak = torch.cuda.max_memory_allocated()
-    hist = trainer.metrics_history
-    losses = [m["loss"] for m in hist]
-    if len(hist) != SSM_TRAIN_STEPS or not all(np.isfinite(losses)):
-        fail(f"ssm (d): {len(hist)} steps, losses {losses}")
-    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    if not last5 < first5:
-        fail(f"ssm (d): the loss did not fall ({first5} -> {last5})")
-    summary = monitor_summary(state.monitors)
-    mon_min = min(float(v.min()) for v in summary.values())
-    if state.monitors.n_act_groups != cfg.num_layers or not mon_min > 0 \
-            or state.qclip.warmup != SSM_TRAIN_STEPS:
-        fail(f"ssm (d): monitors {state.monitors.n_act_groups} groups, "
-             f"least estimate {mon_min}, clip warmup {state.qclip.warmup}")
-    host_ms = [m["step_time_s"] * 1e3 for m in hist]
-    dev_ms = [a.elapsed_time(b) for a, b in events]
-    steady = host_ms[5:]
-    step_ms = statistics.median(steady)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    nbytes, nops, bound_ms, bound_by, bytes_ms, ops_ms = train_bound(
-        model, cfg, tokens)
-    say("ssm", check="d", arch=f"{SSM_TRAIN_ARCH} full width",
-        layers=len(model.layers), params=n_params, batch=TRAIN_BATCH,
-        seq=TRAIN_SEQ, chunk=min(cfg.ssm_chunk, TRAIN_SEQ),
-        steps=SSM_TRAIN_STEPS, run_s=f"{run_s:.3f}", free_before_bytes=free,
-        card=card)
-    say("ssm", check="d", step_ms_host_median_steps_6_20=f"{step_ms:.3f}",
-        step_ms_host_p10_p90=f"{pct(steady, 10):.3f},{pct(steady, 90):.3f}",
-        step_ms_host_first=f"{host_ms[0]:.3f}",
-        step_ms_device_median_steps_6_20=f"{statistics.median(dev_ms[5:]):.3f}",
-        tokens_per_s=f"{tokens / step_ms * 1e3:.1f}",
-        max_memory_allocated_bytes=peak, held_before_bytes=held,
-        peak_of_training_bytes=peak - held, step_bytes=nbytes,
-        step_operations=nops, bytes_bound_ms=f"{bytes_ms:.3f}",
-        operations_bound_ms=f"{ops_ms:.3f}", step_bound_ms=f"{bound_ms:.3f}",
-        bound_by=bound_by, step_bound_share=f"{bound_ms / step_ms:.4f}",
-        bound_note="train_bound: 24 B a parameter; 6 x tokens x matmul "
-                   "parameters (the chunked WKV's float32 einsums not "
-                   "counted)")
-    say("ssm", check="d", first_loss=f"{losses[0]:.4f}",
-        last_loss=f"{losses[-1]:.4f}", mean_first5=f"{first5:.4f}",
-        mean_last5=f"{last5:.4f}", qclip_warmup=state.qclip.warmup,
-        act_groups=state.monitors.n_act_groups,
-        monitors_min_estimate=f"{mon_min:.5f}",
-        stragglers=sum(m["straggler"] for m in hist),
-        part_s=f"{time.perf_counter() - t0:.1f}")
-    del state, model, trainer, step_fn
-    gc.collect()
-    torch.cuda.empty_cache()
+    full = SSM_FULL[SSM_TRAIN_ARCH]
+    train_at_width(
+        torch, card, "ssm", "d", f"{SSM_TRAIN_ARCH} full width", cfg,
+        SSM_TRAIN_STEPS, SSM_TRAIN_LR,
+        lambda m: len(m.layers) == full["layers"] and all(
+            getattr(cfg, k) == v for k, v in full.items() if k != "layers"),
+        need=16 * cfg.n_params() + 3 * cfg.num_layers * decay,
+        layers=full["layers"], chunk=min(cfg.ssm_chunk, TRAIN_SEQ))
 
 
 def phase_ssm(torch, gm, card):
@@ -4600,6 +4490,410 @@ def phase_ssm(torch, gm, card):
         fail("ssm (d): the training path launched a frugal kernel")
     say("ssm", phase_s=f"{time.perf_counter() - t0:.1f}", card=card)
     return launches
+
+
+# --------------------------------------------------------------- phase 17
+ENCDEC_ARCH = "whisper-large-v3"
+ENCDEC_FULL = {"enc_layers": 32, "dec_layers": 32, "d_model": 1280,
+               "num_heads": 20, "num_kv_heads": 20, "head_dim": 64,
+               "d_ff": 5120, "vocab_size": 51866, "enc_seq_len": 1500}
+# The JAX package's tree at full width (jax.eval_shape of its init):
+# enc_stack 629,309,440, dec_stack 839,106,560, embed 66,388,480, dec_pos
+# 41,943,040, enc_norm and dec_norm 2,560 each.
+ENCDEC_PARAMS = 1_576_752_640
+ENCDEC_SEED = 0          # numpy seed of the prompts; torch seed of weights
+ENCDEC_BATCHES, ENCDEC_SLOTS = 2, 4      # 8 requests in two batches of 4
+ENCDEC_PROMPT, ENCDEC_NEW = 4, 60
+# whisper-large-v3's published text context (max_target_positions of the
+# openai/whisper-large-v3 config): the self-attention cache's rows.
+ENCDEC_MAX_LEN = 448
+# A fresh row's float32 decode against forward over this many tokens,
+# every position held to ENCDEC_FORWARD_TOL x max |logit|.
+ENCDEC_FORWARD_TOKENS = 136
+ENCDEC_FORWARD_TOL = 1e-4
+ENCDEC_TRACE_CALLS = 8
+ENCDEC_TRAIN_STEPS = 20
+ENCDEC_TRAIN_LR = (1e-3, 10, ENCDEC_TRAIN_STEPS)   # launch/train.py's
+
+
+def encdec_golden(torch, gm, card):
+    """(a) The golden file's reduced whisper at attention chunks of 16
+    (the JAX package's parameters with every leaf redrawn, encdec/* keys)
+    on the card: memory, forward logits and the 12 serve_step calls'
+    logits within SERVE_GOLDEN_LOGIT_TOL x max |value|, the greedy tokens
+    equal, the loss; three train steps from create_train_state (losses and
+    grad norms within MOE_GOLDEN_LOSS_REL, the clip's and both activation
+    fleets' sign planes and the fleets' cursors bit for bit, m and step
+    within SSM_GOLDEN_STATS_REL x |m|)."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.core import rng as crng
+    from repro_torch.models import params_from_numpy
+    from repro_torch.optim import Optimizer, warmup_cosine
+    from repro_torch.train import (create_train_state, make_serve_step,
+                                   make_train_step)
+
+    t0 = time.perf_counter()
+    data = np.load(GOLDEN)
+    cfg = gm.encdec_config(reduce_for_smoke(get_config(gm.ENCDEC_ARCH)))
+    model = params_from_numpy(cfg, gm.unflatten_params(data, "encdec/params"),
+                              device="cuda")
+    batch = {k: torch.from_numpy(data[f"encdec/{k}"]).cuda()
+             for k in ("frames", "tokens", "targets")}
+    errs = {}
+
+    def check(what, got, want):
+        want = np.asarray(want, np.float32)
+        err = float(np.abs(got.float().cpu().numpy() - want).max())
+        scale = float(np.abs(want).max())
+        errs[what] = max(errs.get(what, 0.0), err / scale)
+        if not err <= SERVE_GOLDEN_LOGIT_TOL * scale:
+            fail(f"encdec (a): {what} differs from the JAX package's by "
+                 f"{err} (max |value| {scale})")
+
+    with torch.no_grad():
+        memory = model.encode(batch["frames"])
+        logits, _ = model(batch["frames"], batch["tokens"])
+        loss, _ = model.loss(batch)
+    check("memory", memory, data["encdec/memory"])
+    check("forward logits", logits, data["encdec/forward/logits"])
+    loss_rel = abs(float(loss) - float(data["encdec/forward/loss"])) \
+        / abs(float(data["encdec/forward/loss"]))
+    serve = make_serve_step(model, encdec_memory=True)
+    caches = model.init_cache(gm.ENCDEC_BATCH, gm.ENCDEC_MAX_LEN)
+    tok = torch.from_numpy(data["encdec/serve/start"]).cuda()
+    for pos in range(gm.ENCDEC_DECODE_STEPS):
+        lg, caches = serve(tok, caches, pos, memory)
+        check("serve_step logits", lg[:, 0], data["encdec/serve/logits"][pos])
+        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        if tok[:, 0].cpu().numpy().tolist() != \
+                data["encdec/serve/tokens"][pos].tolist():
+            fail(f"encdec (a): greedy tokens differ at call {pos}")
+    opt = Optimizer(kind="adamw", lr_fn=warmup_cosine(*gm.TRAIN_LR))
+    st = create_train_state(model, opt, crng.prng_key(0),
+                            example_batch=batch)
+    step = make_train_step(model, opt)
+    rel, plane_rel = [], 0.0
+    for i in range(gm.ENCDEC_TRAIN_STEPS):
+        st, met = step(st, batch)
+        for k in ("loss", "grad_norm"):
+            want = float(data[f"encdec/train/{k}"][i])
+            rel.append(abs(float(met[k]) - want) / abs(want))
+        planes = [("qclip_", st.qclip.sketch)] + [
+            (f"{mon}/", getattr(st.monitors, mon).state)
+            for mon in gm.TRAIN_MONITORS]
+        for name, sk in planes:
+            pre = f"encdec/train/{name}"
+            if not same_bits(torch, sk.sign.cpu(),
+                             torch.from_numpy(data[f"{pre}sign"][i])):
+                fail(f"encdec (a): {name} sign plane differs at step {i}")
+            scale = np.maximum(np.abs(data[f"{pre}m"][i]), 1e-30)
+            for f in ("m", "step"):
+                d = np.abs(getattr(sk, f).cpu().numpy() - data[f"{pre}{f}"][i])
+                plane_rel = max(plane_rel, float((d / scale).max()))
+        for mon in gm.TRAIN_MONITORS:
+            if [int(x) for x in getattr(st.monitors, mon).cursor] != \
+                    data[f"encdec/train/{mon}/cursor"][i].tolist():
+                fail(f"encdec (a): {mon} cursor differs at step {i}")
+    if not max(rel) <= MOE_GOLDEN_LOSS_REL or loss_rel > MOE_GOLDEN_LOSS_REL \
+            or not plane_rel <= SSM_GOLDEN_STATS_REL:
+        fail(f"encdec (a): losses / grad norms within {max(rel)}, forward "
+             f"loss {loss_rel}, fleet planes {plane_rel} relative")
+    say("encdec", check="a", arch=f"{gm.ENCDEC_ARCH} reduced "
+        f"({cfg.enc_layers} + {cfg.dec_layers} layers, d_model "
+        f"{cfg.d_model}, attn_chunk {cfg.attn_chunk}, {cfg.enc_seq_len} "
+        "frames, float32, every leaf redrawn)",
+        **{f"{k.replace(' ', '_')}_max_rel_err": f"{v:.3e}"
+           for k, v in errs.items()},
+        forward_loss_rel_err=f"{loss_rel:.3e}",
+        serve_calls=gm.ENCDEC_DECODE_STEPS, greedy_tokens_equal=True,
+        train_steps=gm.ENCDEC_TRAIN_STEPS,
+        loss_and_grad_norm_max_rel_err=f"{max(rel):.3e}",
+        clip_and_fleets_m_step_max_rel=f"{plane_rel:.3e}",
+        signs_and_cursors="bit-identical", clip_groups=int(
+            st.qclip.sketch.m.shape[0]),
+        part_s=f"{time.perf_counter() - t0:.1f}", card=card)
+
+
+def encdec_decode_bound(model, cfg, batch: int, rows: float):
+    """(bytes, bf16 operations, float32 operations, bound ms, which term)
+    of one decode call at ``batch`` rows whose self-attention reads
+    ``rows`` cache rows: the decoder's float32 weights and norm once, the
+    tied head's whole table, ``batch`` position rows, the bf16 memory read
+    once by each layer's cross K/V projection, the bf16 cache rows read,
+    the logits written; the cross K/V recomputed from memory at every
+    call, the other matmuls at ``batch`` tokens and attention's products
+    (bf16 at the gpu-h100 HwSpec's peak; the float32 head and attention
+    at H100_F32_FLOPS)."""
+    from repro_torch.roofline import hw_for
+
+    hw = hw_for("gpu-h100")
+    d, s_enc, n_l = cfg.d_model, cfg.enc_seq_len, cfg.dec_layers
+    kv = cfg.num_kv_heads * cfg.head_dim
+    nbytes = sum(p.numel() * 4 for p in model.dec_stack.parameters()) \
+        + sum(p.numel() * 4 for p in model.dec_norm.parameters()) \
+        + model.embed["table"].numel() * 4 + batch * d * 4 \
+        + n_l * batch * s_enc * d * 2 \
+        + n_l * 2 * batch * rows * kv * 2 + batch * cfg.vocab_size * 4
+    cross_kv = n_l * 2 * 2 * batch * s_enc * d * kv
+    mats = sum(p.numel() for n, p in model.dec_stack.named_parameters()
+               if "norm" not in n
+               and not n.endswith(("cross.wk", "cross.wv")))
+    ops_bf16 = cross_kv + 2 * batch * mats
+    hq, hd = cfg.num_heads, cfg.head_dim
+    ops_f32 = n_l * 2 * 2 * batch * hq * hd * (s_enc + rows) \
+        + 2 * batch * cfg.vocab_size * d
+    bytes_ms = nbytes / hw.hbm_bw * 1e3
+    ops_ms = (ops_bf16 / hw.peak_flops + ops_f32 / H100_F32_FLOPS) * 1e3
+    return nbytes, ops_bf16, ops_f32, max(bytes_ms, ops_ms), \
+        "bytes" if bytes_ms >= ops_ms else "operations", bytes_ms, ops_ms
+
+
+def encdec_serve(torch, card):
+    """(b) whisper-large-v3 at full width, float32 parameters from a
+    seeded generator, bf16 activations: ENCDEC_BATCHES batches of
+    ENCDEC_SLOTS requests, each batch's frames [4, 1500, 1280] from a
+    seeded generator encoded once, each request's ENCDEC_PROMPT-token
+    prompt fed one token a call, then ENCDEC_NEW greedy tokens, all through
+    make_serve_step(model, encdec_memory=True) with a cache of
+    ENCDEC_MAX_LEN rows; ms per encode and per decode call (CUDA events),
+    tokens/s, peak memory, the call's bound and share, traced windows;
+    then a fresh row's float32 decode against forward over
+    ENCDEC_FORWARD_TOKENS tokens (every position), the bf16 gap
+    reported."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import make_serve_step
+
+    t_start = time.perf_counter()
+    gc.collect()            # earlier engines sit in reference cycles
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(ENCDEC_ARCH)
+    free, total = torch.cuda.mem_get_info()
+    if free < 4 * ENCDEC_PARAMS + MEM_HEADROOM:
+        fail(f"encdec (b): {free} bytes free of {total}, the float32 "
+             f"weights need {4 * ENCDEC_PARAMS} and {MEM_HEADROOM} to run")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(ENCDEC_SEED)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != ENCDEC_PARAMS or (len(model.enc_stack),
+                                     len(model.dec_stack)) != (
+            ENCDEC_FULL["enc_layers"], ENCDEC_FULL["dec_layers"]) \
+            or any(getattr(cfg, k) != v for k, v in ENCDEC_FULL.items()) \
+            or next(model.parameters()).dtype != torch.float32:
+        fail(f"encdec (b): the model ({n_params} parameters) is not "
+             f"{ENCDEC_ARCH} at full width in float32")
+    serve = make_serve_step(model, encdec_memory=True)
+    rng = np.random.default_rng(ENCDEC_SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (ENCDEC_BATCHES, ENCDEC_SLOTS,
+                                               ENCDEC_PROMPT))
+    fgen = torch.Generator(device="cuda")
+    fgen.manual_seed(ENCDEC_SEED + 1)
+    say("encdec", check="b", arch=ENCDEC_ARCH, **ENCDEC_FULL,
+        params=n_params, param_bytes=4 * n_params, param_dtype="float32",
+        activations=cfg.dtype, attn_chunk=cfg.attn_chunk,
+        requests=ENCDEC_BATCHES * ENCDEC_SLOTS, batch=ENCDEC_SLOTS,
+        prompt=ENCDEC_PROMPT, new_tokens=ENCDEC_NEW,
+        cache_rows=ENCDEC_MAX_LEN, free_before_bytes=free,
+        build_s=f"{build_s:.3f}", card=card)
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+
+    enc_ev, call_ev, decode_s, outputs = [], [], [], []
+    calls = ENCDEC_PROMPT + ENCDEC_NEW - 1
+    t_run = time.perf_counter()
+    for bi in range(ENCDEC_BATCHES):
+        frames = torch.randn((ENCDEC_SLOTS, cfg.enc_seq_len, cfg.d_model),
+                             generator=fgen, device="cuda")
+        a, b = event(), event()
+        a.record()
+        with torch.no_grad():
+            memory = model.encode(frames)
+        b.record()
+        enc_ev.append((a, b))
+        caches = model.init_cache(ENCDEC_SLOTS, ENCDEC_MAX_LEN)
+        prompt = torch.from_numpy(prompts[bi]).to(torch.int32).cuda()
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter()
+        new, nxt = [], None
+        for pos in range(calls):
+            tok = prompt[:, pos:pos + 1] if pos < ENCDEC_PROMPT else nxt
+            a, b = event(), event()
+            a.record()
+            logits, caches = serve(tok, caches, pos, memory)
+            b.record()
+            call_ev.append((a, b))
+            nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            if pos >= ENCDEC_PROMPT - 1:
+                new.append(nxt)
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t_dec)
+        outputs.append(torch.cat(new, 1).cpu().numpy())
+    run_s = time.perf_counter() - t_run
+    peak = torch.cuda.max_memory_allocated()
+    out = np.concatenate(outputs)
+    if out.shape != (ENCDEC_BATCHES * ENCDEC_SLOTS, ENCDEC_NEW) \
+            or not ((out >= 0) & (out < cfg.vocab_size)).all():
+        fail(f"encdec (b): outputs of shape {out.shape}, tokens in "
+             f"[{out.min()}, {out.max()}]")
+    enc_ms = [a.elapsed_time(b) for a, b in enc_ev]
+    call_ms = [a.elapsed_time(b) for a, b in call_ev]
+    call_med = statistics.median(call_ms)
+    tokens = int(out.size)
+    rows = sum(min(p + 1, ENCDEC_MAX_LEN) for p in range(calls)) / calls
+    nbytes, ops_bf16, ops_f32, bound_ms, bound_by, bytes_ms, ops_ms = \
+        encdec_decode_bound(model, cfg, ENCDEC_SLOTS, rows)
+    say("encdec", check="b", served=ENCDEC_BATCHES * ENCDEC_SLOTS,
+        tokens=tokens, distinct_tokens=int(len(np.unique(out))),
+        decode_calls=len(call_ms), run_s=f"{run_s:.3f}",
+        encode_ms=",".join(f"{ms:.3f}" for ms in enc_ms),
+        decode_call_ms_device_median=f"{call_med:.4f}",
+        decode_call_ms_device_p10_p90=f"{pct(call_ms, 10):.4f},"
+        f"{pct(call_ms, 90):.4f}",
+        decode_s_host=",".join(f"{s:.3f}" for s in decode_s),
+        decode_tokens_per_s=f"{tokens / sum(decode_s):.2f}",
+        max_memory_allocated_bytes=peak,
+        note="device: CUDA events around encode and each serve_step call; "
+             "host: perf_counter over each batch's decode calls, synced",
+        card=card)
+    say("encdec", check="b", call_bytes=int(nbytes),
+        call_ops_bf16=int(ops_bf16), call_ops_f32=int(ops_f32),
+        cache_rows_counted=f"{rows:.1f}", bytes_bound_ms=f"{bytes_ms:.4f}",
+        operations_bound_ms=f"{ops_ms:.4f}", call_bound_ms=f"{bound_ms:.4f}",
+        bound_by=bound_by, call_bound_share=f"{bound_ms / call_med:.4f}",
+        bound_note="float32 decoder weights and the tied head's table "
+                   "once, the bf16 memory once a layer, the cache rows the "
+                   "calls attend on average; the cross K/V recomputed "
+                   "from memory at every call (bf16 at 989 TFLOP/s, "
+                   "float32 attention and head at 67)")
+
+    # A traced encode and ENCDEC_TRACE_CALLS decode calls after the run.
+    def encode():
+        with torch.no_grad():
+            model.encode(frames)
+
+    def decode_window():
+        nonlocal caches, nxt
+        for i in range(ENCDEC_TRACE_CALLS):
+            logits, caches = serve(nxt, caches, calls + i, memory)
+            nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+
+    for of, fn, n in (("encode", encode, 1),
+                      ("decode", decode_window, ENCDEC_TRACE_CALLS)):
+        window_ms, names, busy = device_trace(
+            torch, lambda: timed(torch, fn)[1])
+        say_window("encdec", of, names, busy, window_ms, n, "call", card)
+    del memory, caches
+
+    # A fresh row: float32 decode against forward, every position.
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, ENCDEC_FORWARD_TOKENS))).to(torch.int32).cuda()
+    row = frames[:1]
+    gaps = {}
+    for dtype in ("bfloat16", "float32"):
+        with config_override(model, dtype=dtype):
+            with torch.no_grad():
+                mem = model.encode(row)
+                fwd, _ = model(row, toks)
+            cache = model.init_cache(1, ENCDEC_MAX_LEN)
+            dec = []
+            for p in range(ENCDEC_FORWARD_TOKENS):
+                lg, cache = serve(toks[:, p:p + 1], cache, p, mem)
+                dec.append(lg)
+            dec = torch.cat(dec, 1)
+        scale = float(fwd.abs().max())
+        err = float((dec - fwd).abs().max())
+        same = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+        gaps[dtype] = (err, scale, same)
+        del mem, fwd, cache, dec
+    err, scale, same = gaps["float32"]
+    if not err <= ENCDEC_FORWARD_TOL * scale:
+        fail(f"encdec (b): float32 decode differs from forward by {err} "
+             f"(max |logit| {scale})")
+    b_err, b_scale, b_same = gaps["bfloat16"]
+    say("encdec", check="b", forward_vs_decode_tokens=ENCDEC_FORWARD_TOKENS,
+        positions_checked="all", activations="float32",
+        max_abs_err=f"{err:.4e}", max_abs_logit=f"{scale:.4f}",
+        share_of_max_logit=f"{err / scale:.4e}",
+        tolerance=f"{ENCDEC_FORWARD_TOL} x max|logit|",
+        same_argmax_share=f"{same:.4f}",
+        bf16_max_abs_err=f"{b_err:.4e}",
+        bf16_share_of_max_logit=f"{b_err / b_scale:.4f}",
+        bf16_same_argmax_share=f"{b_same:.4f}",
+        bf16_note="information, not checked")
+    del model, serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("encdec", check="b", part_s=f"{time.perf_counter() - t_start:.1f}",
+        card=card)
+
+
+def encdec_train(torch, card):
+    """(c) whisper-large-v3 at full width trained as launch/train.py
+    trains it, through train_at_width for ENCDEC_TRAIN_STEPS steps: the
+    batches with frames [TRAIN_BATCH, 16, 1280] from
+    launch.train.with_frames, the quantile clip over the tree's 6 groups,
+    the monitors over its 32 decoder layers; train_bound counts the
+    encoder's and the cross K/V projections' tokens as the frames."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import ENC_FRAMES, with_frames
+
+    cfg = get_config(ENCDEC_ARCH)
+    full = (ENCDEC_FULL["enc_layers"], ENCDEC_FULL["dec_layers"])
+
+    def model_ok(model):
+        return sum(p.numel() for p in model.parameters()) == ENCDEC_PARAMS \
+            and (len(model.enc_stack), len(model.dec_stack)) == full
+
+    def checks(run):
+        if run.state.qclip.sketch.m.shape != (6,):
+            fail(f"encdec (c): the clip has {run.state.qclip.sketch.m.shape}"
+                 " groups, not 6")
+        return {}
+
+    def tokens_of(name):
+        frames = name.startswith("enc_stack") \
+            or name.endswith(("cross.wk", "cross.wv"))
+        return TRAIN_BATCH * (ENC_FRAMES if frames else TRAIN_SEQ)
+
+    train_at_width(
+        torch, card, "encdec", "c", f"{ENCDEC_ARCH} full width", cfg,
+        ENCDEC_TRAIN_STEPS, ENCDEC_TRAIN_LR, model_ok,
+        need=16 * ENCDEC_PARAMS,
+        batches=lambda it: with_frames(it, TRAIN_BATCH, cfg.d_model, "cuda"),
+        tokens_of=tokens_of, checks=checks, frames=ENC_FRAMES,
+        layers=f"{full[0]}+{full[1]}")
+
+
+def phase_encdec(torch, gm, card):
+    """Phase 17: (a) the golden encoder-decoder entry; (b) whisper-large-v3
+    at full width encodes and decodes 8 requests; (c) trains 20 steps.
+    Neither (b) nor (c) launches a frugal kernel: both counts are set to 0
+    before each and read after."""
+    from repro_torch.kernels import frugal_update as fk
+
+    t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        fail("encdec: TF32 matmuls are on; the float32 golden check needs "
+             "them off")
+    encdec_golden(torch, gm, card)
+    for part, fn in (("b", encdec_serve), ("c", encdec_train)):
+        fk.launch_count = fk.scatter_launch_count = 0
+        fn(torch, card)
+        if (fk.launch_count, fk.scatter_launch_count) != (0, 0):
+            fail(f"encdec ({part}): launched {fk.launch_count} dense and "
+                 f"{fk.scatter_launch_count} run kernels")
+    say("encdec", phase_s=f"{time.perf_counter() - t0:.1f}",
+        frugal_kernel_launches=0, card=card)
 
 
 def main() -> None:
@@ -4648,6 +4942,7 @@ def main() -> None:
     phase_training(torch, gm, card)
     flush_entry["launches"] += phase_moe(torch, gm, card)
     flush_entry["launches"] += phase_ssm(torch, gm, card)
+    phase_encdec(torch, gm, card)
     torch.cuda.synchronize()
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("JAX or the JAX package was imported")

@@ -11,7 +11,9 @@ prints the routes' SLO summary.
 
 ``--arch`` names any config of the attention-only, MoE (olmoe-1b-7b), MLA
 (deepseek-v2-lite-16b), SSM (rwkv6-1.6b) and hybrid (zamba2-2.7b)
-families: every decoder of the zoo.
+families: every decoder of the zoo. The encoder-decoder
+(whisper-large-v3) fails with the engine's ValueError, as the JAX
+engine cannot serve it either.
 
 ``--device`` defaults to the card and raises where there is none.
 """

@@ -11,12 +11,36 @@ JSON summary as its last line.
 injection); a rerun with the same ``--ckpt-dir`` resumes from the last
 committed step. As in the JAX driver, the rerun reads the corpus again
 from its first batch.
+
+For an encoder-decoder (``--arch whisper-large-v3``) each batch gains
+``frames`` [batch, 16, d_model], float32 on the device, drawn once per
+batch from a ``torch.Generator`` seeded with the batch's first token (the
+JAX launcher folds that token into ``PRNGKey(0)``: the same keying, not
+the same bits).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+
+
+ENC_FRAMES = 16      # the stub frontend's frames per training example
+
+
+def with_frames(batches, batch: int, d_model: int, device):
+    """Each batch of ``batches`` with ``frames`` [batch, ENC_FRAMES,
+    d_model] added, float32 on ``device``, from a generator seeded with
+    the batch's first token."""
+    import torch
+
+    for b in batches:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(b["tokens"][0, 0]))
+        frames = torch.randn((batch, ENC_FRAMES, d_model), generator=gen,
+                             dtype=torch.float32, device=device)
+        yield {"frames": frames, "tokens": b["tokens"],
+               "targets": b["targets"]}
 
 
 def main(argv=None):
@@ -65,6 +89,9 @@ def main(argv=None):
                                         seed=args.seed))
     example = next(corpus.iterate(prefetch=0, device=dev))
     data_iter = corpus.iterate(device=dev)
+    if cfg.is_encdec:
+        example = next(with_frames([example], args.batch, cfg.d_model, dev))
+        data_iter = with_frames(data_iter, args.batch, cfg.d_model, dev)
     state = create_train_state(model, opt, crng.prng_key(args.seed),
                                example_batch=example)
     step_fn = make_train_step(model, opt, clip_mode=args.clip)

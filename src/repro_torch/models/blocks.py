@@ -7,10 +7,13 @@ stacked on a leading axis; the port holds one module per layer
 order. ``stage_unit_kinds`` is ported whole, so every config names its
 stack; the block functions cover the attention kinds (``attn``,
 ``attn_local``, ``attn_global``), MLA (``mla``: deepseek's dense prefix),
-the MoE kinds (``moe``: GQA attention and experts; ``mla_moe``) and the
+the MoE kinds (``moe``: GQA attention and experts; ``mla_moe``), the
 recurrent kinds (``mamba``: a mamba2 mixer alone, no MLP; ``rwkv``: time
-mix and channel mix, both weight sets under ``tm``). The encoder-decoder
-kinds raise NotImplementedError: they are ROADMAP A item 2.
+mix and channel mix, both weight sets under ``tm``) and the
+encoder-decoder's (``enc_attn``: bidirectional self-attention at scale
+hd^-0.5, no softcap; ``dec_cross``: causal self-attention at the default
+chunk, cross-attention over the encoder's ``memory`` under ``norm_x``,
+then the MLP).
 
 Per-block telemetry (``_stats``: activation absmax and rms, and for the
 MoE kinds the router's aux loss, expert load and drop fraction) is
@@ -39,15 +42,14 @@ from .layers.norm import apply_norm, norm_init
 ATTENTION_KINDS = ("attn", "attn_local", "attn_global")
 MOE_KINDS = ("moe", "mla_moe")          # the kinds that route to experts
 RECURRENT_KINDS = ("mamba", "rwkv")
-PORTED_KINDS = ATTENTION_KINDS + ("mla",) + MOE_KINDS + RECURRENT_KINDS
+ENCDEC_KINDS = ("enc_attn", "dec_cross")
+PORTED_KINDS = ATTENTION_KINDS + ("mla",) + MOE_KINDS + RECURRENT_KINDS \
+    + ENCDEC_KINDS
 
 
 def _check_kind(kind: str):
     if kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet: the port's model zoo "
-            f"holds the decoders of kinds {', '.join(PORTED_KINDS)}; "
-            "the encoder-decoder kinds are ROADMAP A item 2")
+        raise ValueError(f"unknown layer kind {kind!r}")
 
 
 # --------------------------------------------------------------------- kinds
@@ -74,6 +76,9 @@ def block_init(gen, cfg, kind: str, dtype=torch.float32,
         p["attn"] = mla_lib.mla_init(gen, cfg, dtype, device)
     else:
         p["attn"] = attn_lib.attention_init(gen, cfg, dtype, device)
+    if kind == "dec_cross":
+        p["cross"] = attn_lib.cross_attention_init(gen, cfg, dtype, device)
+        p["norm_x"] = norm_init(cfg, cfg.d_model, dtype, device)
     p["norm2"] = norm_init(cfg, cfg.d_model, dtype, device)
     if kind in MOE_KINDS:
         p["moe"] = moe_lib.moe_init(gen, cfg, dtype, device)
@@ -114,9 +119,10 @@ def _feed_forward(params, x, cfg, kind: str, decode: bool):
 
 
 def block_apply(params, x: torch.Tensor, cfg, kind: str, cos=None,
-                sin=None, q_offset: int = 0
+                sin=None, q_offset: int = 0, memory=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence residual block."""
+    """Full-sequence residual block (``memory``: the encoder's output,
+    which ``dec_cross`` attends)."""
     _check_kind(kind)
     h = apply_norm(cfg, params["norm1"], x)
     if kind == "mamba":
@@ -129,7 +135,16 @@ def block_apply(params, x: torch.Tensor, cfg, kind: str, cos=None,
         cm, _ = rwkv_lib.rwkv6_channelmix(params["tm"], h, cfg)
         x = x + cm
         return x, _stats(x)
-    if kind.startswith("mla"):
+    if kind == "enc_attn":                      # bidirectional
+        a = attn_lib.cross_attention(params["attn"], h, h, cfg,
+                                     chunk=cfg.attn_chunk)
+    elif kind == "dec_cross":
+        x = x + attn_lib.attention(params["attn"], h, cfg, cos, sin,
+                                   q_offset=q_offset)
+        h = apply_norm(cfg, params["norm_x"], x)
+        a = attn_lib.cross_attention(params["cross"], h, memory, cfg,
+                                     chunk=cfg.attn_chunk)
+    elif kind.startswith("mla"):
         a = mla_lib.mla_attention(params["attn"], h, cfg, cos, sin,
                                   q_offset=q_offset, chunk=cfg.attn_chunk)
     else:
@@ -148,8 +163,11 @@ def block_cache_init(cfg, kind: str, batch: int, max_len: int, dtype,
     """{"k", "v"} [B, L, Hkv, hd] for the attention kinds and ``moe``;
     {"ckv" [B, L, kv_lora_rank], "kr" [B, L, qk_rope_dim]} for MLA; the
     recurrent state for ``mamba`` ({"ssm", "conv"}, float32) and ``rwkv``
-    ({"wkv"} float32, {"x_tm", "x_cm"} [B, 1, D] in ``dtype``)."""
+    ({"wkv"} float32, {"x_tm", "x_cm"} [B, 1, D] in ``dtype``);
+    ``dec_cross`` caches its self-attention's {"k", "v"} only."""
     _check_kind(kind)
+    if kind == "enc_attn":
+        raise ValueError("the encoder's layers run no decode steps")
     if kind == "mamba":
         return mamba_lib.mamba2_init_cache(cfg, batch, torch.float32, device)
     if kind == "rwkv":
@@ -172,10 +190,13 @@ def block_cache_init(cfg, kind: str, batch: int, max_len: int, dtype,
 
 
 def block_decode(params, x: torch.Tensor, cache, pos: int, cfg, kind: str,
-                 cos=None, sin=None):
+                 cos=None, sin=None, memory=None):
     """One-token decode through a residual block; the cache is updated in
-    place and returned."""
+    place and returned. ``dec_cross`` recomputes its cross-attention's K
+    and V from ``memory`` at every call, as the JAX package does."""
     _check_kind(kind)
+    if kind == "enc_attn":
+        raise ValueError("the encoder's layers run no decode steps")
     h = apply_norm(cfg, params["norm1"], x)
     if kind in RECURRENT_KINDS:
         if kind == "mamba":
@@ -205,7 +226,12 @@ def block_decode(params, x: torch.Tensor, cache, pos: int, cfg, kind: str,
         cache = dict(cache, k=ck, v=cv)
     if cfg.post_norms and kind in ATTENTION_KINDS:
         a = apply_norm(cfg, params["post_norm1"], a)
-    x, extra = _feed_forward(params, x + a, cfg, kind, decode=True)
+    x = x + a
+    if kind == "dec_cross":
+        h = apply_norm(cfg, params["norm_x"], x)
+        x = x + attn_lib.cross_attention(params["cross"], h, memory, cfg,
+                                         chunk=cfg.attn_chunk)
+    x, extra = _feed_forward(params, x, cfg, kind, decode=True)
     return x, cache, _stats(x, extra)
 
 
@@ -240,12 +266,14 @@ class Block(Params):
         super().__init__(tree)
         self.cfg, self.kind = cfg, kind
 
-    def forward(self, x, cos=None, sin=None, q_offset: int = 0):
-        return block_apply(self, x, self.cfg, self.kind, cos, sin, q_offset)
+    def forward(self, x, cos=None, sin=None, q_offset: int = 0,
+                memory=None):
+        return block_apply(self, x, self.cfg, self.kind, cos, sin, q_offset,
+                           memory)
 
-    def decode(self, x, cache, pos: int, cos=None, sin=None):
+    def decode(self, x, cache, pos: int, cos=None, sin=None, memory=None):
         return block_decode(self, x, cache, pos, self.cfg, self.kind, cos,
-                            sin)
+                            sin, memory)
 
 
 # ------------------------------------------------------------------- stages

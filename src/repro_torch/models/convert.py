@@ -8,6 +8,12 @@ becomes one layer module, in the order the JAX scan runs them. zamba2's
 ``shared_block`` is one module, run at each ``{}`` placeholder of
 ``stack``; both directions keep it once, under that key.
 
+An encoder-decoder's tree (``EncDecLM``) has no ``stack``: its
+``enc_stack`` and ``dec_stack`` are single dicts whose leaves carry a
+leading [n_layers] axis (a ``vmap`` over layers), and each layer becomes
+one module of the port's ``enc_stack`` / ``dec_stack``, named
+``enc_stack.<i>.*`` / ``dec_stack.<i>.*``.
+
 ``train_state_from_numpy(cfg, tree)`` does the same for a whole
 ``TrainState`` (parameters, moments, step, key words, monitor fleets and
 the clip sketch), and ``train_state_to_numpy(state)`` is its inverse into
@@ -25,8 +31,15 @@ from repro_torch.configs.platform import resolve_device
 
 from .blocks import stage_unit_kinds
 from .causal_lm import CausalLM
+from .encdec import EncDecLM
 
 TOP_LEVEL = ("embed", "final_norm", "lm_head", "pos", "shared_block")
+ENCDEC_TOP_LEVEL = ("embed", "dec_pos", "enc_norm", "dec_norm")
+
+
+def _layer_stacks(cfg) -> Dict[str, int]:
+    """An encoder-decoder's layer-stacked keys and their layer counts."""
+    return {"enc_stack": cfg.enc_layers, "dec_stack": cfg.dec_layers}
 
 
 def _tensors(node, device, unit=None):
@@ -40,10 +53,15 @@ def _tensors(node, device, unit=None):
         device)
 
 
-def params_from_numpy(cfg, tree: Mapping, device=None) -> CausalLM:
+def params_from_numpy(cfg, tree: Mapping, device=None):
     """The JAX package's parameter tree (numpy leaves) as a port model on
     ``device`` (None: the card; raises where there is none)."""
     dev = resolve_device(device)
+    if cfg.is_encdec:
+        out = {k: _tensors(tree[k], dev) for k in ENCDEC_TOP_LEVEL}
+        for k, n in _layer_stacks(cfg).items():
+            out[k] = [_tensors(tree[k], dev, i) for i in range(n)]
+        return EncDecLM(cfg, out)
     _, n_units, unit_kinds = stage_unit_kinds(cfg)
     out = {k: _tensors(tree[k], dev) for k in TOP_LEVEL if k in tree}
     out["layers"] = [_tensors(p, dev) for p in tree.get("prefix", [])]
@@ -76,7 +94,8 @@ def _on(x, device, dtype=None) -> torch.Tensor:
 def flat_from_tree(cfg, tree: Mapping) -> Dict[str, np.ndarray]:
     """A JAX-layout parameter tree (numpy or tensor leaves) -> {the
     port's parameter name: leaf}, stacked units unstacked in scan
-    order; the shared block's leaves once, as ``shared_block.*``."""
+    order; the shared block's leaves once, as ``shared_block.*``; an
+    encoder-decoder's stacks layer by layer, as ``enc_stack.<i>.*``."""
     _, n_units, unit_kinds = stage_unit_kinds(cfg)
     out: Dict[str, Any] = {}
 
@@ -86,6 +105,16 @@ def flat_from_tree(cfg, tree: Mapping) -> Dict[str, np.ndarray]:
                 put(f"{prefix}.{k}", v, unit)
         else:
             out[prefix] = node if unit is None else node[unit]
+
+    if cfg.is_encdec:
+        stacks = _layer_stacks(cfg)
+        for k, v in tree.items():
+            if k in stacks:
+                for i in range(stacks[k]):
+                    put(f"{k}.{i}", v, i)
+            else:
+                put(k, v)
+        return out
 
     for k in TOP_LEVEL:
         if k in tree:
@@ -106,14 +135,34 @@ def _stack_host(x) -> np.ndarray:
     return _host(x)
 
 
+def _stacked(units, leaf, path=()):
+    """Per-unit trees of the same keys -> one tree whose leaves are
+    ``leaf`` of the units' leaves in order."""
+    node_u0 = units[0]
+    for p in path:
+        node_u0 = node_u0[p]
+    if isinstance(node_u0, dict):
+        return {k: _stacked(units, leaf, path + (k,)) for k in node_u0}
+    per_unit = []
+    for unit in units:
+        x = unit
+        for p in path:
+            x = x[p]
+        per_unit.append(x)
+    return leaf(per_unit)
+
+
 def tree_from_flat(cfg, flat: Mapping[str, Any], leaf=_stack_host) -> Dict:
     """{port parameter name: tensor} -> the JAX package's tree: each
-    unit kind's layers stacked on a leading axis (``leaf`` maps a list
-    of per-unit leaves, or one leaf, to the stored value)."""
+    unit kind's layers (an encoder-decoder's: each stack's) stacked on a
+    leading axis (``leaf`` maps a list of per-unit leaves, or one leaf,
+    to the stored value)."""
     prefix_kinds, n_units, unit_kinds = stage_unit_kinds(cfg)
     n_prefix, n_kinds = len(prefix_kinds), len(unit_kinds)
+    stacks = _layer_stacks(cfg) if cfg.is_encdec else {"layers": None}
     tree: Dict[str, Any] = {}
-    layers: Dict[int, Dict[str, Any]] = {}
+    per_layer: Dict[str, Dict[int, Dict[str, Any]]] = {k: {}
+                                                        for k in stacks}
 
     def insert(node, parts, value):
         for p in parts[:-1]:
@@ -122,10 +171,17 @@ def tree_from_flat(cfg, flat: Mapping[str, Any], leaf=_stack_host) -> Dict:
 
     for name, x in flat.items():
         parts = name.split(".")
-        if parts[0] == "layers":
-            insert(layers.setdefault(int(parts[1]), {}), parts[2:], x)
+        if parts[0] in stacks:
+            insert(per_layer[parts[0]].setdefault(int(parts[1]), {}),
+                   parts[2:], x)
         else:
             insert(tree, parts, leaf(x))
+
+    if cfg.is_encdec:
+        for k, n in stacks.items():
+            tree[k] = _stacked([per_layer[k][i] for i in range(n)], leaf)
+        return tree
+    layers = per_layer["layers"]
 
     def mapped(node, fn):
         if isinstance(node, dict):
@@ -138,20 +194,7 @@ def tree_from_flat(cfg, flat: Mapping[str, Any], leaf=_stack_host) -> Dict:
         # A shared kind has no layers.* names: its placeholder is {}.
         units = [layers.get(n_prefix + u * n_kinds + j, {})
                  for u in range(n_units)]
-
-        def stacked(node_u0, path=()):
-            if isinstance(node_u0, dict):
-                return {k: stacked(v, path + (k,))
-                        for k, v in node_u0.items()}
-            per_unit = []
-            for unit in units:
-                x = unit
-                for p in path:
-                    x = x[p]
-                per_unit.append(x)
-            return leaf(per_unit)
-
-        stack.append(stacked(units[0]) if units else {})
+        stack.append(_stacked(units, leaf) if units else {})
     tree["stack"] = stack
     return tree
 

@@ -210,6 +210,11 @@ def attention_decode(params, x: torch.Tensor, cache_k: torch.Tensor,
     return torch.matmul(out, params["wo"].to(dt)), cache_k, cache_v
 
 
+def cross_attention_init(gen, cfg, dtype=torch.float32, device=None):
+    """The same tree and scales as ``attention_init``."""
+    return attention_init(gen, cfg, dtype, device)
+
+
 def cross_attention(params, x: torch.Tensor, memory: torch.Tensor, cfg, *,
                     chunk: int = 1024) -> torch.Tensor:
     """Decoder-side cross-attention over encoder memory (no mask, no

@@ -1,9 +1,10 @@
-"""Token embeddings, output heads and the learned position table (port of
-the JAX package's ``models/layers/embedding.py``; its ``sinusoidal_pos``,
-which only the encoder-decoder calls, comes with that family)."""
+"""Token embeddings, output heads, and learned / sinusoidal position
+tables (port of the JAX package's ``models/layers/embedding.py``)."""
 from __future__ import annotations
 
 import torch
+
+from .rope import sinusoidal_embedding
 
 
 def normal(gen: torch.Generator, shape, scale: float, dtype=torch.float32,
@@ -40,3 +41,9 @@ def learned_pos(params, positions: torch.Tensor, dtype) -> torch.Tensor:
     last row, as the JAX package's gather clamps."""
     table = params["pos_table"]
     return table.to(dtype)[positions.long().clamp(0, table.shape[0] - 1)]
+
+
+def sinusoidal_pos(seq: int, d: int, offset: int, dtype,
+                   device=None) -> torch.Tensor:
+    """Rows offset .. offset + seq of the fixed sinusoidal table."""
+    return sinusoidal_embedding(offset + seq, d, dtype, device)[offset:]

@@ -2,34 +2,33 @@
 ``models/model.py``)."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from repro_torch.configs.platform import resolve_device
 
-from .causal_lm import CausalLM, init_tree
+from . import causal_lm, encdec
+from .causal_lm import CausalLM
+from .encdec import EncDecLM
 
 
 def build_model(cfg, device=None,
-                generator: Optional[torch.Generator] = None) -> CausalLM:
-    """A ``CausalLM`` of ``cfg`` with fresh parameters on ``device`` (None:
-    the card; raises where there is none).
+                generator: Optional[torch.Generator] = None
+                ) -> Union[CausalLM, EncDecLM]:
+    """A ``CausalLM`` of ``cfg`` (an ``EncDecLM`` for an encoder-decoder)
+    with fresh parameters on ``device`` (None: the card; raises where there
+    is none).
 
     The initialisers keep the JAX package's shapes and scales; the values
     come from ``generator`` (default: seed 0 on the device), so they
     follow the same distributions, not JAX's threefry bits. To run the
     JAX package's own weights use ``convert.params_from_numpy``.
-
-    Builds the attention-only, MoE, MLA, SSM (rwkv6) and hybrid (zamba2)
-    families; the encoder-decoder raises NotImplementedError (ROADMAP A
-    item 2)."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name} is an encoder-decoder; that family is ROADMAP A "
-            "item 2")
+    """
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(0)
-    return CausalLM(cfg, init_tree(cfg, generator, dev))
+    if cfg.is_encdec:
+        return EncDecLM(cfg, encdec.init_tree(cfg, generator, dev))
+    return CausalLM(cfg, causal_lm.init_tree(cfg, generator, dev))

@@ -17,7 +17,8 @@ package's bits when fed the same statistics.
 The JAX package counts the groups with ``eval_shape`` of the loss; the
 port counts them from the model's layers, without a forward step: each
 block returns one absmax and one rms, and each MoE block (kinds ``moe``
-and ``mla_moe``) one load per expert. The loads arrive unit-major (the
+and ``mla_moe``) one load per expert. An encoder-decoder's loss returns
+its decoder's stats only, so it has ``dec_layers`` activation groups. The loads arrive unit-major (the
 stack's [n_units, E] raveled; deepseek's dense prefix has none), so lane
 g of the port's expert-load fleet is lane g of the JAX package's.
 """
@@ -86,15 +87,18 @@ def _flatten_stats(stats: Dict[str, Any]):
 
 def group_counts(cfg) -> Tuple[int, int]:
     """(activation groups, expert-load groups) of ``cfg``'s model: one
-    per layer, and one per (MoE layer, expert)."""
+    per layer (per decoder layer for an encoder-decoder), and one per
+    (MoE layer, expert)."""
+    if cfg.is_encdec:
+        return cfg.dec_layers, 0
     kinds = layer_kinds(cfg)
     return len(kinds), expert_load_groups(
         sum(kind in MOE_KINDS for kind in kinds), cfg.moe_experts)
 
 
 def init_train_monitors(model, device=None) -> TrainMonitors:
-    """The three fleets for ``model`` (a ``CausalLM``): one group per
-    layer for the activation fleets, one per (MoE layer, expert) for the
+    """The three fleets for ``model`` (a ``CausalLM`` or an ``EncDecLM``):
+    one group per layer for the activation fleets, one per (MoE layer, expert) for the
     expert-load fleet (None without MoE layers), on ``device`` (None:
     the model's)."""
     dev = model.device if device is None else device

@@ -69,6 +69,9 @@ class ServeEngine:
     """Serves ``model`` (a ``models.CausalLM``, which holds its
     parameters) from ``batch_slots`` KV-cache slots of ``max_len``
     positions on ``device`` (None: the card; raises where there is none).
+    An encoder-decoder is refused, as the JAX package's engine cannot
+    serve one (it calls ``decode_step`` without the encoder's memory):
+    decode it through ``train.make_serve_step(model, encdec_memory=True)``.
     The model must live on that device; the SLO fleet is made there.
     ``telemetry`` is any object with ``.count(name, n)``: it receives
     ``requests_submitted``, ``requests_completed`` and the SLO fleet's
@@ -77,6 +80,12 @@ class ServeEngine:
     def __init__(self, model, batch_slots: int = 4, max_len: int = 512,
                  temperature: float = 0.0, seed: int = 0, telemetry=None,
                  device=None):
+        if model.cfg.is_encdec:
+            raise ValueError(
+                f"{model.cfg.name} is an encoder-decoder, which the engine "
+                "does not serve (its decode step needs the encoder's "
+                "memory): use train.make_serve_step(model, "
+                "encdec_memory=True)")
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"the model lives on {model.device}, the "

@@ -62,10 +62,14 @@ def make_train_step(model, optimizer: Optimizer, clip_mode: str = "quantile",
     return train_step
 
 
-def make_serve_step(model):
+def make_serve_step(model, encdec_memory: bool = False):
     """Returns serve_step(tokens, caches, pos): one decode token for the
-    whole batch. (The JAX package's ``encdec_memory`` form waits for the
-    encoder-decoder, ROADMAP A item 2.)"""
-    def serve_step(tokens, caches, pos):
-        return model.decode_step(tokens, caches, pos)
+    whole batch; with ``encdec_memory``, serve_step(tokens, caches, pos,
+    memory) for an encoder-decoder, ``memory`` from its ``encode``."""
+    if encdec_memory:
+        def serve_step(tokens, caches, pos, memory):
+            return model.decode_step(tokens, caches, pos, memory)
+    else:
+        def serve_step(tokens, caches, pos):
+            return model.decode_step(tokens, caches, pos)
     return serve_step

@@ -35,12 +35,17 @@ class TrainState(NamedTuple):
 
 def clip_blocks(model) -> Tuple[Tuple[str, ...], Dict[str, List[str]]]:
     """The quantile clip's groups: the JAX parameter tree's top-level keys
-    in sorted order (``embed``, ``final_norm``, [``lm_head``], [``pos``],
-    ``prefix``, [``shared_block``], ``stack``; ``prefix`` may be empty),
-    and each one's parameter names. Every stacked layer falls in
-    ``stack``; zamba2's shared block is its own group, as in JAX."""
+    in sorted order, and each one's parameter names. A decoder's are
+    ``embed``, ``final_norm``, [``lm_head``], [``pos``], ``prefix``,
+    [``shared_block``], ``stack`` (``prefix`` may be empty): every
+    stacked layer falls in ``stack``, zamba2's shared block is its own
+    group, as in JAX. An encoder-decoder's are its six top-level keys
+    (``dec_norm``, ``dec_pos``, ``dec_stack``, ``embed``, ``enc_norm``,
+    ``enc_stack``), which its parameter names begin with."""
+    blocks: Dict[str, List[str]] = {}
+    if not model.cfg.is_encdec:
+        blocks.update(prefix=[], stack=[])
     n_prefix = len(stage_unit_kinds(model.cfg)[0])
-    blocks: Dict[str, List[str]] = {"prefix": [], "stack": []}
     for name, _ in model.named_parameters():
         top, rest = name.split(".", 1)
         if top == "layers":
@@ -54,8 +59,8 @@ def clip_blocks(model) -> Tuple[Tuple[str, ...], Dict[str, List[str]]]:
 def create_train_state(model, optimizer: Optimizer, key,
                        example_batch=None, with_monitors: bool = True,
                        with_quantile_clip: bool = True) -> TrainState:
-    """The state of a fresh run of ``model`` (a ``CausalLM`` with its
-    initial weights; the port draws them from a ``torch.Generator``, see
+    """The state of a fresh run of ``model`` (a ``CausalLM`` or an
+    ``EncDecLM`` with its initial weights; the port draws them from a ``torch.Generator``, see
     ``models.build_model``). ``key``: uint32 key words
     (``core.rng.prng_key(seed)``), split as the JAX package splits its
     init key; the second child becomes the state's key. Monitors come

@@ -148,11 +148,29 @@ planes and cursors after each (``ssm/<name>/train/*``).
     PYTHONPATH=src python tests/make_torch_port_golden.py --only-training
     PYTHONPATH=src python tests/make_torch_port_golden.py --only-moe
     PYTHONPATH=src python tests/make_torch_port_golden.py --only-ssm
+    PYTHONPATH=src python tests/make_torch_port_golden.py --only-encdec
 
-``--only-serving`` (``--only-training``, ``--only-moe``, ``--only-ssm``)
-rewrites the ``serve/*`` (``train/*`` and the training checkpoint,
-``moe/*``, ``ssm/*``) keys and keeps every other key of the file as it
-is.
+The encoder-decoder (keys ``encdec/*``): the reduced whisper-large-v3
+(``encdec_config``: 2 + 2 layers, d_model 128, 4 heads of 32, d_ff 256,
+vocab 512, 64 frames) at ``attn_chunk`` ENCDEC_CHUNK = 16, so that the
+encoder's and the cross-attention's online softmax crosses chunks; its
+JAX ``TrainState`` from ``jax.random.PRNGKey(0)`` with every parameter
+leaf redrawn (numpy seed ENCDEC_SEED), the parameters stored
+(``encdec/params/*``; the moments are zeros and the rest of the state is
+what ``create_train_state`` makes). Inputs from numpy seed ENCDEC_SEED:
+frames [2, 64, 128], tokens and targets [2, 16]. Outputs: ``encode``'s
+memory, ``forward``'s logits and the loss over them; ENCDEC_DECODE_STEPS
+``serve_step`` calls with the memory (``make_serve_step(model,
+encdec_memory=True)``), from start tokens, each feeding the greedy token
+of the call before (``encdec/serve/*``: logits and tokens); and
+ENCDEC_TRAIN_STEPS jitted ``train_step``s on the same batch: loss, grad
+norm, the clip sketch and both activation fleets' planes and cursors
+after each (``encdec/train/*``).
+
+``--only-serving`` (``--only-training``, ``--only-moe``, ``--only-ssm``,
+``--only-encdec``) rewrites the ``serve/*`` (``train/*`` and the training
+checkpoint, ``moe/*``, ``ssm/*``, ``encdec/*``) keys and keeps every
+other key of the file as it is.
 """
 import os
 import shutil
@@ -214,6 +232,9 @@ SSM_MODELS = {"zamba2-2.7b": ("zamba2-2.7b", False),
               "rwkv6-1.6b-factorized": ("rwkv6-1.6b", True)}
 SSM_WIDTHS = dict(SERVE_WIDTHS, rwkv_head_size=16)
 SSM_SUBCHUNK, SSM_SEED, SSM_TRAIN_STEPS = 8, 23, 4
+ENCDEC_ARCH, ENCDEC_CHUNK, ENCDEC_SEED = "whisper-large-v3", 16, 29
+ENCDEC_BATCH, ENCDEC_SEQ, ENCDEC_MAX_LEN = 2, 16, 32
+ENCDEC_DECODE_STEPS, ENCDEC_TRAIN_STEPS = 12, 3
 
 
 def random_planes(rng, prog, lanes):
@@ -1258,6 +1279,96 @@ def ssm_train_batches(data, name):
             for i in range(SSM_TRAIN_STEPS)]
 
 
+def encdec_config(cfg):
+    """The golden encoder-decoder's config from the package's reduced
+    whisper-large-v3 config: its attention in chunks of ENCDEC_CHUNK."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, attn_chunk=ENCDEC_CHUNK)
+
+
+def encdec_inputs(d_model, vocab, frames_len):
+    """(frames [B, S_enc, D] float32, tokens, targets [B, S] int32, start
+    tokens [B, 1] int32) from numpy seed ENCDEC_SEED."""
+    rng = np.random.default_rng(ENCDEC_SEED)
+    frames = rng.normal(0.0, 1.0, (ENCDEC_BATCH, frames_len, d_model))
+    tokens, targets = (rng.integers(0, vocab, (ENCDEC_BATCH, ENCDEC_SEQ))
+                       for _ in range(2))
+    start = rng.integers(0, vocab, (ENCDEC_BATCH, 1))
+    return (frames.astype(np.float32), tokens.astype(np.int32),
+            targets.astype(np.int32), start.astype(np.int32))
+
+
+def golden_encdec():
+    """{key: array} of the JAX package's encoder-decoder (``encdec/*``)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config, reduce_for_smoke
+    from repro.models import build_model
+    from repro.optim import Optimizer, warmup_cosine
+    from repro.train import create_train_state, make_serve_step
+    from repro.train import make_train_step
+
+    cfg = encdec_config(reduce_for_smoke(get_config(ENCDEC_ARCH)))
+    model = build_model(cfg)
+    frames, tokens, targets, start = encdec_inputs(
+        cfg.d_model, cfg.vocab_size, cfg.enc_seq_len)
+    batch = {"frames": jnp.asarray(frames), "tokens": jnp.asarray(tokens),
+             "targets": jnp.asarray(targets)}
+    opt = Optimizer(kind="adamw", lr_fn=warmup_cosine(*TRAIN_LR))
+    state = create_train_state(model, opt, jax.random.PRNGKey(0),
+                               example_batch=batch)
+    params = redraw_params(jax.tree.map(np.asarray, state.params),
+                           ENCDEC_SEED)
+    state = state._replace(params=jax.tree.map(jnp.asarray, params))
+    out = flatten_params(params, "encdec/params")
+    out.update({"encdec/frames": frames, "encdec/tokens": tokens,
+                "encdec/targets": targets, "encdec/serve/start": start})
+    memory = model.encode(state.params, batch["frames"])
+    logits, _ = model.forward(state.params, batch["frames"],
+                              batch["tokens"])
+    loss, _ = model.loss(state.params, batch)
+    out["encdec/memory"] = np.asarray(memory, np.float32)
+    out["encdec/forward/logits"] = np.asarray(logits, np.float32)
+    out["encdec/forward/loss"] = np.float32(loss)
+
+    serve = make_serve_step(model, encdec_memory=True)
+    caches = model.init_cache(ENCDEC_BATCH, ENCDEC_MAX_LEN)
+    tok, rows, toks = jnp.asarray(start), [], []
+    for pos in range(ENCDEC_DECODE_STEPS):
+        lg, caches = serve(state.params, tok, caches, pos, memory)
+        rows.append(np.asarray(lg[:, 0], np.float32))
+        tok = jnp.argmax(lg[:, -1], axis=-1).astype(jnp.int32)[:, None]
+        toks.append(np.asarray(tok[:, 0]))
+    out["encdec/serve/logits"] = np.stack(rows)
+    out["encdec/serve/tokens"] = np.stack(toks)
+
+    step = jax.jit(make_train_step(model, opt))
+    rows = {k: [] for k in ("loss", "grad_norm", "qclip_m", "qclip_step",
+                            "qclip_sign")}
+    for mon in TRAIN_MONITORS:
+        for f in ("m", "step", "sign", "cursor"):
+            rows[f"{mon}/{f}"] = []
+    for _ in range(ENCDEC_TRAIN_STEPS):
+        state, met = step(state, batch)
+        for k in ("loss", "grad_norm"):
+            rows[k].append(np.float32(met[k]))
+        for f in ("m", "step", "sign"):
+            rows[f"qclip_{f}"].append(np.asarray(getattr(state.qclip.sketch,
+                                                         f)))
+        for mon in TRAIN_MONITORS:
+            fleet = getattr(state.monitors, mon)
+            for f in ("m", "step", "sign"):
+                rows[f"{mon}/{f}"].append(np.asarray(getattr(fleet.state,
+                                                             f)))
+            rows[f"{mon}/cursor"].append(np.asarray(
+                [int(x) for x in fleet.cursor], np.int32))
+    out.update({f"encdec/train/{k}": np.stack(v) for k, v in rows.items()})
+    out["encdec/train/n_groups"] = np.asarray(
+        [state.monitors.n_act_groups, state.monitors.n_moe_groups], np.int32)
+    return out
+
+
 def golden_checkpoints(root):
     """Write the JAX package's checkpoints under ``root`` (one directory
     per fleet: ``2u``, ``2u-window``, ``slo``) and return {key: array} of
@@ -1319,6 +1430,7 @@ def build(ckpt_root=None):
     arrays.update(golden_training(ckpt_root))
     arrays.update(golden_moe())
     arrays.update(golden_ssm())
+    arrays.update(golden_encdec())
     return arrays
 
 
@@ -1327,7 +1439,8 @@ if __name__ == "__main__":
         os.path.abspath(__file__))), "src"))
     os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
     only = {"--only-serving": "serve/", "--only-training": "train/",
-            "--only-moe": "moe/", "--only-ssm": "ssm/"}
+            "--only-moe": "moe/", "--only-ssm": "ssm/",
+            "--only-encdec": "encdec/"}
     if len(sys.argv) == 2 and sys.argv[1] in only:
         prefix = only[sys.argv[1]]
         with np.load(GOLDEN) as old:
@@ -1339,6 +1452,8 @@ if __name__ == "__main__":
             arrays.update(golden_moe())
         elif prefix == "ssm/":
             arrays.update(golden_ssm())
+        elif prefix == "encdec/":
+            arrays.update(golden_encdec())
         else:
             shutil.rmtree(os.path.join(CKPT_ROOT, "train"),
                           ignore_errors=True)

@@ -54,6 +54,7 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
               "repro_torch.models", "repro_torch.models.config",
               "repro_torch.models.blocks", "repro_torch.models.causal_lm",
               "repro_torch.models.model", "repro_torch.models.convert",
+              "repro_torch.models.encdec",
               "repro_torch.models.layers",
               "repro_torch.models.layers.attention",
               "repro_torch.models.layers.norm",

@@ -525,13 +525,6 @@ def test_build_model_moe_keeps_jax_tree(arch):
     assert all(p.dtype == torch.float32 for p in m.parameters())
 
 
-@pytest.mark.parametrize("arch", ["whisper-large-v3"])
-def test_families_not_ported_raise(arch):
-    cfg = reduce_for_smoke(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 2"):
-        build_model(cfg, device="cpu")
-
-
 def test_build_model_needs_a_card_or_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):

@@ -30,6 +30,18 @@ CUDA device):
   SSM_STATS_REL = 1e-5 x |m| (1e-4 on the card: where the 2U tick sets
   m to the statistic, which the chunked forward computes within float
   rounding of the JAX package's); on the CPU and on the card.
+* The golden encoder-decoder entry (``encdec/*``: the reduced
+  whisper-large-v3 at attention chunks of 16, every parameter redrawn):
+  the JAX package's parameters through ``params_from_numpy``; ``encode``'s
+  memory, ``forward``'s logits and the 12 ``serve_step`` calls' logits
+  with the memory (``make_serve_step(model, encdec_memory=True)``) each
+  within ENCDEC_REL = 1e-4 x its max |value|, the greedy tokens equal,
+  the loss within 1e-5 relative; three ``train_step``s from
+  ``create_train_state`` (which makes the JAX package's initial state)
+  with each loss and grad norm within 1e-5 relative (1e-4 on the card),
+  the clip's and both activation fleets' sign planes and the fleets'
+  cursors bit for bit, their m and step planes within SSM_STATS_REL x
+  |m|; on the CPU and on the card.
 * The five attention-only configs, the two MoE configs and the two
   recurrent configs, reduced (float32), fresh weights from a seeded
   generator: ``forward`` and 8
@@ -62,6 +74,7 @@ ARCHS = ("yi-6b", "gemma2-9b", "granite-20b", "minitron-4b", "qwen2-vl-2b",
 LOGIT_TOL = 1e-4
 MOE_LOSS_REL = {"cpu": 1e-5, "cuda": 1e-4}
 SSM_STATS_REL = {"cpu": 1e-5, "cuda": 1e-4}
+ENCDEC_REL = 1e-4
 
 
 def bits(x):
@@ -217,6 +230,83 @@ def test_golden_ssm_entry_on_cpu(name, monkeypatch):
 def test_golden_ssm_entry_on_card(card, name, monkeypatch):
     assert torch.backends.cuda.matmul.allow_tf32 is False
     check_golden_ssm(name, card, monkeypatch)
+
+
+def close_to_max(got, want, rel=ENCDEC_REL):
+    want = np.asarray(want, np.float32)
+    err = float(np.abs(got.detach().float().cpu().numpy() - want).max())
+    assert err <= rel * float(np.abs(want).max()), err
+
+
+def check_golden_encdec(device):
+    from repro_torch.core import rng as crng
+    from repro_torch.optim import Optimizer, warmup_cosine
+    from repro_torch.train import (create_train_state, make_serve_step,
+                                   make_train_step)
+
+    data = np.load(golden.GOLDEN)
+    cfg = golden.encdec_config(reduce_for_smoke(get_config(
+        golden.ENCDEC_ARCH)))
+    model = params_from_numpy(cfg, golden.unflatten_params(
+        data, "encdec/params"), device=device)
+    batch = {k: torch.from_numpy(data[f"encdec/{k}"]).to(device)
+             for k in ("frames", "tokens", "targets")}
+    with torch.no_grad():
+        memory = model.encode(batch["frames"])
+        logits, _ = model(batch["frames"], batch["tokens"])
+        loss, _ = model.loss(batch)
+    close_to_max(memory, data["encdec/memory"])
+    close_to_max(logits, data["encdec/forward/logits"])
+    assert float(loss) == pytest.approx(float(data["encdec/forward/loss"]),
+                                        rel=1e-5)
+    serve = make_serve_step(model, encdec_memory=True)
+    caches = model.init_cache(golden.ENCDEC_BATCH, golden.ENCDEC_MAX_LEN)
+    tok = torch.from_numpy(data["encdec/serve/start"]).to(device)
+    for pos in range(golden.ENCDEC_DECODE_STEPS):
+        lg, caches = serve(tok, caches, pos, memory)
+        close_to_max(lg[:, 0], data["encdec/serve/logits"][pos])
+        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        np.testing.assert_array_equal(tok[:, 0].cpu().numpy(),
+                                      data["encdec/serve/tokens"][pos])
+    opt = Optimizer(kind="adamw", lr_fn=warmup_cosine(*golden.TRAIN_LR))
+    st = create_train_state(model, opt, crng.prng_key(0),
+                            example_batch=batch)
+    assert [st.monitors.n_act_groups, st.monitors.n_moe_groups] == \
+        data["encdec/train/n_groups"].tolist()
+    step = make_train_step(model, opt)
+    kind = torch.device(device).type
+    rel = SSM_STATS_REL[kind]
+    for i in range(golden.ENCDEC_TRAIN_STEPS):
+        st, met = step(st, batch)
+        for k in ("loss", "grad_norm"):
+            assert float(met[k]) == pytest.approx(
+                float(data[f"encdec/train/{k}"][i]),
+                rel=MOE_LOSS_REL[kind]), (i, k)
+        planes = [("qclip", st.qclip.sketch)] + [
+            (mon, getattr(st.monitors, mon).state)
+            for mon in golden.TRAIN_MONITORS]
+        for name, sk in planes:
+            pre = f"encdec/train/{name}" + ("_" if name == "qclip" else "/")
+            np.testing.assert_array_equal(bits(sk.sign),
+                                          bits(data[f"{pre}sign"][i]))
+            scale = np.abs(data[f"{pre}m"][i])
+            for f in ("m", "step"):
+                err = np.abs(getattr(sk, f).cpu().numpy()
+                             - data[f"{pre}{f}"][i])
+                assert (err <= rel * scale).all(), (i, name, f)
+        for mon in golden.TRAIN_MONITORS:
+            assert [int(x) for x in getattr(st.monitors, mon).cursor] == \
+                data[f"encdec/train/{mon}/cursor"][i].tolist()
+
+
+def test_golden_encdec_entry_on_cpu():
+    check_golden_encdec("cpu")
+
+
+@pytest.mark.cuda
+def test_golden_encdec_entry_on_card(card):
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    check_golden_encdec(card)
 
 
 def cpu_model(arch, seed=0):
