@@ -221,7 +221,9 @@ each or more:
      10,944; vocab 102,400; 15.7 B float32 parameters, 62.8 GB, from a
      seeded generator on the card after the earlier phases' memory is
      released and the free memory checked; bf16 activations) served as
-     phase 13 (b) serves yi-6b (but 16 requests): 4 slots x 512, 10^6
+     phase 13 (b) serves yi-6b (but 5 requests of 4-8 prompt and 6-12 new
+     tokens, one admitted into a freed slot; 16 of 8-32 and 16-32 until
+     the dry run's phase 18 needed the time): 4 slots x 512, 10^6
      routes, one B3 launch per step, SLO state vs a CPU replay, the decode
      path vs forward at capacity factor 16.0 (no drops, as tests/test_arch_smoke.py
      holds JAX) within 3e-2 x max|logit|, ms per step, tokens/s, TTFT, peak
@@ -252,13 +254,17 @@ each or more:
      rwkv6-1.6b at full width (24 layers, d_model 2048, 32 heads of 64,
      d_ff 7168, vocab 65,536, the baseline chunked form; 1.48 B
      parameters), each served as phase 13 (b) serves yi-6b: 4 slots x
-     512, 10^6 routes, 8 requests, one B3 launch per step, SLO state vs
+     512, 10^6 routes, 5 requests of 4-8 prompt and 6-12 new tokens, one
+     admitted into a freed slot (8 of 8-32 and 16-32 until phase 18
+     needed the time),
+     one B3 launch per step, SLO state vs
      a CPU replay, a fresh row's float32 decode vs forward over a
      136-token prompt (two chunks, the second padded) within 1e-4 x
      max|logit| (the bf16 difference reported), ms per step, tokens/s,
      TTFT, peak memory, the share of phase 13's byte bound (the shared
      block read at each of its 9 uses; the recurrent state in place of
-     a KV cache), and a traced second engine; (d) rwkv6-1.6b at full width trained by
+     a KV cache), and for zamba2 a traced second engine; (d) rwkv6-1.6b
+     at full width trained by
      Trainer.run for 20 steps (AdamW, clip and monitors on, 8 x 64
      tokens) after the earlier phases' memory is released and the free
      memory checked: the loss falling, the monitors positive, no frugal
@@ -290,6 +296,30 @@ each or more:
      frames [8, 16, 1280], AdamW, the clip's 6 groups and 32 monitor
      groups) for 20 steps: the loss falling, ms per step against its
      bound.
+ 18. the dry run and the rest of parallel/ (launch.specs / mesh /
+     dryrun on meta tensors, parallel.sharding and compression,
+     roofline.trace_cost, abstract_train_state, reshard_restore), which
+     launches none of the port's kernels: (a) every arch's decode_32k and
+     long_500k cells on the 256- and 512-device production meshes
+     (long_500k skipped as cell_supported says; zamba2's long_500k left
+     to the CPU tests) and yi-6b's train_4k and prefill_32k on the single
+     pod, traced in this process under the
+     profiler within 90 s: no device allocation, no device activity,
+     each record's FLOPs per device, residency, bound and seconds,
+     priced on gpu-h100; (b) qwen2-vl-2b's phase-14 cell (8 x 64) at full width:
+     one train step on the card under FlopCounterMode counts the FLOPs of
+     the same cell traced on meta, op for op; (c) the dry run's residency
+     of that TrainState on make_test_mesh() (1 x 1) within 0.5% of the
+     growth of memory_allocated across build_model and
+     create_train_state; (e) compress_grads over one step's full-width
+     gradients, twice (the second with the first's error feedback): q,
+     scale and the new feedback of 16 leaves (the largest and 15 drawn
+     by seed) bit-equal to the function on host copies, wire bytes
+     compressed against uncompressed; (d) the TrainState saved and
+     restored through reshard_restore onto make_test_mesh(): every leaf
+     bit-equal to the live state and on the card, the step as saved; then
+     placed onto a (2, 2) mesh of cuda:0 repeated: every shard the shape
+     its spec gives and unshard bit for bit.
 
 frugal_update_auto launches B1 at the roofline autotuner's block size
 (repro_torch.roofline.autotune: 256 at the shapes of phases 5 and 9,
@@ -3303,16 +3333,18 @@ def serve_golden(torch, gm):
         summary_and_slo_state="bit-identical to the JAX engine's")
 
 
-def serve_traffic(rng, vocab, names, n):
-    """``n`` requests: prompts of 8-32 tokens, 16-32 new tokens, routes
-    Zipf(1.2) over ``names``."""
+def serve_traffic(rng, vocab, names, n, new_tokens=(16, 32),
+                  prompt_tokens=(8, 32)):
+    """``n`` requests: prompts of ``prompt_tokens`` and ``new_tokens``
+    (lowest, highest) new tokens, routes Zipf(1.2) over ``names``."""
     from repro_torch.serve import Request
 
     out = []
     for rid in range(n):
-        n = int(rng.integers(8, 33))
+        n = int(rng.integers(prompt_tokens[0], prompt_tokens[1] + 1))
         out.append(Request(rid=rid, prompt=rng.integers(0, vocab, n).tolist(),
-                           max_new_tokens=int(rng.integers(16, 33)),
+                           max_new_tokens=int(rng.integers(
+                               new_tokens[0], new_tokens[1] + 1)),
                            route=names[int((rng.zipf(ZIPF_A) - 1)
                                            % len(names))]))
     return out
@@ -3505,11 +3537,13 @@ def per_use_weight_bytes(model, batch: int) -> int:
 
 
 def serve_full(torch, arch, expect, n_requests, card, tag, check,
-               trace=True):
+               trace=True, new_tokens=(16, 32), prompt_tokens=(8, 32)):
     """``arch`` at full width (``expect``: its layer count and config
     widths), float32 parameters from a seeded generator on the card,
     ServeEngine(SERVE_SLOTS, SERVE_MAX_LEN) with SERVE_ROUTES routes
-    registered, fed ``n_requests`` requests; the checks and numbers of
+    registered, fed ``n_requests`` requests of ``prompt_tokens`` and
+    ``new_tokens`` new tokens (more requests than slots: one is admitted
+    into a freed slot, and that is checked); the checks and numbers of
     phase 13 (b), a traced second engine if ``trace``. The decode path is
     held against forward in the config's activations (within
     SERVE_FORWARD_TOL), or for a MoE config at capacity factor
@@ -3574,7 +3608,8 @@ def serve_full(torch, arch, expect, n_requests, card, tag, check,
         register_routes_s=f"{register_s:.3f}")
 
     rng = np.random.default_rng(SERVE_SEED)
-    reqs = serve_traffic(rng, cfg.vocab_size, names, n_requests)
+    reqs = serve_traffic(rng, cfg.vocab_size, names, n_requests, new_tokens,
+                         prompt_tokens)
     instrument_engine(torch, eng)
     step_host_ms, admitted = [], []
     gc_ms = collections.Counter()
@@ -3612,6 +3647,8 @@ def serve_full(torch, arch, expect, n_requests, card, tag, check,
                 0 <= t < cfg.vocab_size for t in r.output):
             fail(f"{tag} ({check}): request {r.rid} got {len(r.output)} "
                  f"tokens of {r.max_new_tokens}")
+    if n_requests > SERVE_SLOTS and sum(admitted) < 2:
+        fail(f"{tag} ({check}): no request was admitted into a freed slot")
     flushes = len(eng.flush_at)
     if launches == 0 or launches != flushes \
             or flushes != len(step_host_ms):
@@ -4152,7 +4189,15 @@ def phase_training(torch, gm, card):
 
 
 # --------------------------------------------------------------- phase 15
-MOE_SERVE = (("deepseek-v2-lite-16b", "b", 16), ("olmoe-1b-7b", "c", 4))
+# Requests of phases 15 (b) and 16 (b), (c): SERVE_SLOTS + 1, so that one
+# is admitted into a freed slot (the MLA cache and the recurrent state
+# reset on reuse), of FEW_TOKENS' prompt and new tokens.
+# Until phase 18 (the dry run's 18.5 GB checkpoint) needed the time:
+# deepseek 16 and zamba2 / rwkv6 8 requests each, of 8-32 and 16-32.
+FEW_REQUESTS = SERVE_SLOTS + 1
+FEW_TOKENS = {"prompt_tokens": (4, 8), "new_tokens": (6, 12)}
+MOE_SERVE = (("deepseek-v2-lite-16b", "b", FEW_REQUESTS),
+             ("olmoe-1b-7b", "c", 4))
 MOE_FULL = {
     "deepseek-v2-lite-16b": {
         "layers": 27, "d_model": 2048, "num_heads": 16, "kv_lora_rank": 512,
@@ -4333,7 +4378,8 @@ def phase_moe(torch, gm, card):
     launches = 0
     for arch, check, n in MOE_SERVE:
         launches += serve_full(torch, arch, MOE_FULL[arch], n, card, "moe",
-                               check, trace=check == "b")
+                               check, trace=check == "b",
+                               **FEW_TOKENS if check == "b" else {})
     counts = (fk.launch_count, fk.scatter_launch_count)
     moe_train(torch, card)
     if (fk.launch_count, fk.scatter_launch_count) != counts:
@@ -4342,8 +4388,8 @@ def phase_moe(torch, gm, card):
     return launches
 
 # --------------------------------------------------------------- phase 16
-SSM_SERVE = (("zamba2-2.7b", "b", SERVE_REQUESTS),
-             ("rwkv6-1.6b", "c", SERVE_REQUESTS))
+SSM_SERVE = (("zamba2-2.7b", "b", FEW_REQUESTS),
+             ("rwkv6-1.6b", "c", FEW_REQUESTS))
 SSM_FULL = {
     "zamba2-2.7b": {
         "layers": 54, "d_model": 2560, "num_heads": 32, "num_kv_heads": 32,
@@ -4483,7 +4529,7 @@ def phase_ssm(torch, gm, card):
     launches = 0
     for arch, check, n in SSM_SERVE:
         launches += serve_full(torch, arch, SSM_FULL[arch], n, card, "ssm",
-                               check)
+                               check, trace=check == "b", **FEW_TOKENS)
     counts = (fk.launch_count, fk.scatter_launch_count)
     ssm_train(torch, card)
     if (fk.launch_count, fk.scatter_launch_count) != counts:
@@ -4896,6 +4942,386 @@ def phase_encdec(torch, gm, card):
         frugal_kernel_launches=0, card=card)
 
 
+# --------------------------------------------------------------- phase 18
+# (a)'s cells, traced in this process: every arch's decode_32k and
+# long_500k on both production meshes (one trace prices both; long_500k
+# skipped as cell_supported says) but zamba2's long_500k, and yi-6b's
+# train_4k and prefill_32k on the single pod. zamba2's long_500k (13 s)
+# and the other train_4k and prefill_32k cells (5-16 s each) run in
+# tests/test_torch_dryrun.py or through the CLI (--all) on any host.
+DRY_CELLS = [(a, s, ("single", "multi")) for a in (
+    "qwen2-vl-2b", "zamba2-2.7b", "yi-6b", "minitron-4b", "gemma2-9b",
+    "granite-20b", "deepseek-v2-lite-16b", "olmoe-1b-7b", "whisper-large-v3",
+    "rwkv6-1.6b") for s in ("decode_32k", "long_500k")
+    if (a, s) != ("zamba2-2.7b", "long_500k")] + [
+    ("yi-6b", s, ("single",)) for s in ("train_4k", "prefill_32k")]
+DRY_BUDGET_S = 90.0
+DRY_RESIDENCY_TOL = 0.005
+COMPRESS_SEED = 0
+COMPRESS_LEAVES = 16
+
+
+def say_dry_record(rec, seconds, card):
+    if rec.get("skipped"):
+        say("dryrun", check="a", arch=rec["arch"], shape=rec["shape"],
+            mesh=rec["mesh"], skipped=True, reason=rec["reason"][:60])
+        return
+    t = rec["roofline"]
+    say("dryrun", check="a", arch=rec["arch"], shape=rec["shape"],
+        mesh=rec["mesh"], device_flops=f"{rec['device_flops']:.6e}",
+        residency_bytes=rec["production"]["memory_analysis"][
+            "argument_size_in_bytes"],
+        hbm_bytes=f"{rec['device_bytes']:.6e}",
+        collective_bytes=rec["device_collective_bytes"],
+        bound=t["bound"], step_lower_bound_s=f"{t['step_lower_bound_s']:.6e}",
+        model_flops_over_traced=f"{rec['model_flops'] / rec['flops_global']:.4f}",
+        trace_s=rec["production"]["trace_s"], cell_s=f"{seconds:.2f}",
+        hw=t["hw"], card=card)
+
+
+def dry_run_cells(torch, card):
+    """(a) DRY_CELLS in this process under the profiler, within
+    DRY_BUDGET_S: every record ok, or skipped as cell_supported says,
+    priced on gpu-h100; no device allocation (the allocator's count of
+    allocations unchanged, its peak the allocation it started from) and
+    no device activity. memory_allocated before and after is printed (an
+    earlier phase's object freed in the window lowers it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import dryrun, specs
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    done = []
+    t0 = time.perf_counter()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    with prof:
+        for cell in DRY_CELLS:
+            t1 = time.perf_counter()
+            done.append((dryrun.run_cells(*cell), time.perf_counter() - t1))
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    after = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
+    try:
+        activity = sum(1 for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+    except Exception as e:  # noqa: BLE001 — no trace: not measured
+        activity = f"not measured ({e!r})"
+    if allocs or peak != before or activity != 0:
+        fail(f"dryrun (a): {allocs} device allocations, peak {peak} from "
+             f"{before}, device activities {activity}")
+    n_ok = n_skip = 0
+    for recs, sec in done:
+        for rec in recs:
+            supported, _ = specs.cell_supported(rec["arch"], rec["shape"])
+            if not rec.get("ok"):
+                fail(f"dryrun (a): {rec['arch']} {rec['shape']} "
+                     f"{rec['mesh']}: {rec.get('error')}\n"
+                     f"{rec.get('traceback', '')[-1500:]}")
+            if bool(rec.get("skipped")) == supported:
+                fail(f"dryrun (a): {rec['arch']} {rec['shape']} skipped="
+                     f"{rec.get('skipped')} against cell_supported")
+            if not rec.get("skipped") and rec["roofline"]["hw"] != "gpu-h100":
+                fail(f"dryrun (a): priced on {rec['roofline']['hw']}")
+            n_skip += bool(rec.get("skipped"))
+            n_ok += not rec.get("skipped")
+            say_dry_record(rec, sec, card)
+    say("dryrun", check="a", cells=len(DRY_CELLS), records_ok=n_ok,
+        records_skipped=n_skip, device_allocations=allocs,
+        max_memory_allocated_over_start=peak - before,
+        memory_allocated_before_after=f"{before},{after}",
+        device_activities=activity, wall_s=f"{wall_s:.2f}",
+        budget_s=DRY_BUDGET_S, card=card,
+        note="meta tensors only, traced in this process")
+    if wall_s > DRY_BUDGET_S:
+        fail(f"dryrun (a): {wall_s:.1f} s, over its {DRY_BUDGET_S} s")
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Bit equality of two tensors of one dtype and shape (any device)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+            8: torch.int64}[a.element_size()]
+    return torch.equal(a.contiguous().view(view),
+                       b.to(a.device).contiguous().view(view))
+
+
+def dry_run_train_state(torch, card):
+    """(b) and (c): qwen2-vl-2b's phase-14 cell (8 x 64) on meta, then on
+    the card: the growth of memory_allocated across build_model and
+    create_train_state against the dry run's residency on the 1 x 1 test
+    mesh; one train step under FlopCounterMode against the meta count.
+    Returns (model, state, batch, step_fn) on the card."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import rng as crng
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import Optimizer, warmup_cosine
+    from repro_torch.roofline.trace_cost import traced_cost
+    from repro_torch.train import create_train_state, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    cell = {"seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "kind": "train"}
+    t0 = time.perf_counter()
+    fn, (meta_state, meta_batch), _ = specs.build_cell(TRAIN_ARCH, cell)
+    meta = traced_cost(fn, meta_state, meta_batch)
+    meta_s = time.perf_counter() - t0
+    mesh = make_test_mesh()
+    if mesh.devices.shape != (1, 1):
+        fail(f"dryrun (c): the test mesh is {mesh.devices.shape}")
+    state_sh, _ = dryrun.build_shardings(mesh, "train",
+                                         (meta_state, meta_batch))
+    predicted = int(dryrun.residency_bytes(meta_state, state_sh).max())
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    free, _ = torch.cuda.mem_get_info()
+    if free < 3 * predicted + MEM_HEADROOM:
+        fail(f"dryrun: {free} bytes free, the state needs {predicted}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TRAIN_SEED)
+    opt = Optimizer(kind="adamw", lr_fn=warmup_cosine(*TRAIN_LR))
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=TRAIN_SEQ,
+                                        batch_size=TRAIN_BATCH,
+                                        seed=TRAIN_SEED))
+    batch = next(corpus.iterate(prefetch=0, device="cuda"))
+    batch["positions"] = torch.arange(
+        TRAIN_SEQ, dtype=torch.int32, device="cuda")[None, None].expand(
+            TRAIN_BATCH, 3, TRAIN_SEQ).contiguous()
+    if {k: (tuple(v.shape), v.dtype) for k, v in batch.items()} != \
+            {k: (tuple(v.shape), v.dtype) for k, v in meta_batch.items()}:
+        fail(f"dryrun (b): the card's batch {list(batch)} is not the cell's")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = build_model(cfg, device="cuda", generator=gen)
+    state = create_train_state(model, opt, crng.prng_key(TRAIN_SEED),
+                               example_batch=batch)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - base
+    rel = abs(grown - predicted) / predicted
+    say("dryrun", check="c", arch=TRAIN_ARCH, mesh="1x1 (make_test_mesh)",
+        predicted_residency_bytes=predicted, memory_allocated_growth=grown,
+        relative_gap=f"{rel:.6f}", tolerance=DRY_RESIDENCY_TOL,
+        held_before_bytes=held, card=card,
+        note="growth of torch.cuda.memory_allocated across build_model and "
+             "create_train_state (the caching allocator rounds each tensor "
+             "to 512 B)")
+    if rel > DRY_RESIDENCY_TOL:
+        fail(f"dryrun (c): residency {predicted} predicted, {grown} grown")
+
+    step_fn = make_train_step(model, opt)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    card_cost = traced_cost(step_fn, state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    state, metrics = card_cost["out"]
+    loss = float(metrics["loss"])
+    say("dryrun", check="b", arch=TRAIN_ARCH, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, meta_flops=meta["flops"], card_flops=card_cost["flops"],
+        equal=meta["flops"] == card_cost["flops"],
+        ops=",".join(f"{k}:{v}"
+                     for k, v in sorted(card_cost["by_op"].items())),
+        meta_s=f"{meta_s:.2f}", card_step_s=f"{step_s:.2f}",
+        loss=f"{loss:.4f}", card=card)
+    if meta["flops"] != card_cost["flops"] \
+            or meta["by_op"] != card_cost["by_op"] or not np.isfinite(loss):
+        fail(f"dryrun (b): meta {meta['by_op']} against the card's "
+             f"{card_cost['by_op']}, loss {loss}")
+    return model, state, batch
+
+
+def dry_run_compression(torch, model, batch, card):
+    """(e) compress_grads over one step's full-width gradients on the
+    card, twice (error feedback zero, then the first call's): q, scale
+    and the new ef of COMPRESS_LEAVES leaves (the largest and others
+    drawn by COMPRESS_SEED) bit-equal to the same function on host
+    copies."""
+    import numpy as np
+    from repro_torch.parallel import compression as comp
+
+    model.zero_grad(set_to_none=True)
+    loss, _ = model.loss(batch)
+    loss.backward()
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    names = sorted(grads)
+    largest = max(names, key=lambda k: grads[k].numel())
+    rng = np.random.default_rng(COMPRESS_SEED)
+    chosen = [largest] + [names[i] for i in rng.choice(
+        [i for i, k in enumerate(names) if k != largest],
+        COMPRESS_LEAVES - 1, replace=False)]
+    ef = comp.ef_init(grads)
+    host_ef = {k: ef[k].cpu() for k in chosen}
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    for rnd in (1, 2):
+        a.record()
+        q, s, new_ef = comp.compress_grads(grads, ef)
+        b.record()
+        torch.cuda.synchronize()
+        hq, hs, hef = comp.compress_grads(
+            {k: grads[k].cpu() for k in chosen}, host_ef)
+        bad = [k for k in chosen
+               if not (bits_equal(torch, q[k].cpu(), hq[k])
+                       and bits_equal(torch, s[k].cpu(), hs[k])
+                       and bits_equal(torch, new_ef[k].cpu(), hef[k]))]
+        if bad:
+            fail(f"compression (e) round {rnd}: {bad} differ from the host")
+        ef_max = max(float(e.abs().max()) for e in new_ef.values())
+        say("compress", check="e", round=rnd, leaves=len(chosen),
+            largest=largest, largest_values=grads[largest].numel(),
+            all_leaves=len(names), values=sum(g.numel()
+                                              for g in grads.values()),
+            compress_ms=f"{a.elapsed_time(b):.3f}",
+            ef_absmax=f"{ef_max:.6e}",
+            bit_equal=True, card=card)
+        ef, host_ef = new_ef, hef
+        del q, s
+    full = comp.wire_bytes(grads, compressed=False)
+    small = comp.wire_bytes(grads, compressed=True)
+    say("compress", check="e", wire_bytes_uncompressed=full,
+        wire_bytes_compressed=small, ratio=f"{full / small:.4f}", card=card)
+    del grads, ef, new_ef
+    model.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dry_run_reshard(torch, state, card):
+    """(d) The TrainState saved, restored through reshard_restore onto
+    make_test_mesh() (1 x 1: every leaf whole on the card) and held bit
+    for bit against the live state; then placed onto a (2, 2) mesh of
+    cuda:0 repeated: every shard the shape its spec gives, unshard
+    giving each leaf back bit for bit."""
+    import numpy as np
+    from repro_torch.launch.mesh import Mesh, _device_array, make_test_mesh
+    from repro_torch.models import convert
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.elastic import (reshard_restore,
+                                           train_state_shardings)
+
+    model = state.params
+    one = make_test_mesh()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_reshard_")
+    try:
+        t0 = time.perf_counter()
+        ckpt.save_train_state(tmp, state.step, state, keep=1)
+        save_s = time.perf_counter() - t0
+        nbytes = dir_bytes(tmp)
+        t1 = time.perf_counter()
+        placed, step = reshard_restore(tmp, state, one)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if step != state.step:
+        fail(f"reshard (d): restored step {step}, saved {state.step}")
+
+    def whole(arr):
+        if arr.shape != (1, 1) or arr[0, 0].device.type != "cuda":
+            fail(f"reshard (d): a leaf placed as {arr.shape} on "
+                 f"{arr[0, 0].device}")
+        return arr[0, 0]
+
+    def moments(tree):
+        return (("params", tree.params),
+                ("mu", tree.opt_state.mu), ("nu", tree.opt_state.nu))
+
+    n = 0
+    live = dict(moments(state._replace(params=dict(
+        model.named_parameters()))))
+    for field, tree in moments(placed):
+        got = dict(sh.layout_leaves(tree))
+        for path, leaf in sh.layout_leaves(sh.jax_layout(model,
+                                                         live[field])):
+            want = torch.stack(leaf) if isinstance(leaf, list) else leaf
+            if not bits_equal(torch, whole(got[path]), want.detach()):
+                fail(f"reshard (d): {field} {path} differs")
+            n += 1
+    # The rest (count, step, key words, monitors, clip) as checkpointed.
+    tmpl = convert.train_state_to_numpy(state, shapes_only=True)
+    rest = lambda t: (t.opt_state.count, t.step, t.rng,    # noqa: E731
+                      t.monitors, t.qclip)
+    got = ckpt._flatten(ckpt._pack_sketches(sh.unplace(
+        rest(placed), (sh.replicated(one),) * 5)))
+    want = ckpt._flatten(ckpt._pack_sketches(rest(tmpl)))
+    if len(got) != len(want) or not all(
+            x.device.type == "cuda" and bits_equal(
+                torch, x, y if isinstance(y, torch.Tensor)
+                else torch.as_tensor(np.asarray(y)))
+            for x, y in zip(got, want)):
+        fail("reshard (d): the count, step, key words, monitors or clip "
+             "differ")
+    n += len(got)
+    say("reshard", check="d", mesh="1x1 (make_test_mesh)", leaves=n,
+        step=step, checkpoint_bytes=nbytes, save_s=f"{save_s:.1f}",
+        restore_s=f"{restore_s:.1f}", bit_equal=True, on="cuda", card=card,
+        note="save_train_state, then reshard_restore: leaves read on the "
+             "host and placed on the card")
+
+    card0 = torch.device("cuda", 0)
+    mesh = Mesh(_device_array([card0] * 4, (2, 2)), ("data", "model"))
+    t2 = time.perf_counter()
+    shardings = train_state_shardings(state, mesh)
+    again = sh.place(sh.unplace(placed, train_state_shardings(state, one)),
+                     shardings)
+    specs = dict(sh.layout_leaves(shardings.params))
+    m = owned = 0
+    for (field, tree), (_, ref) in zip(moments(again), moments(placed)):
+        refs = dict(sh.layout_leaves(ref))
+        for path, arrs in sh.layout_leaves(tree):
+            s = specs[path]
+            leaf = sh.unshard(arrs, s)
+            held = [c for c in np.ndindex(2, 2) if arrs[c] is not None]
+            owned += s.spec[:1] == ("data",)
+            if any(tuple(arrs[c].shape) != s.shard_shape(leaf.shape)
+                   or arrs[c].device != card0 for c in held) \
+                    or not bits_equal(torch, leaf, whole(refs[path])):
+                fail(f"reshard (d): {field} {path} on the (2, 2) mesh")
+            m += 1
+    say("reshard", check="d", mesh="2x2 of cuda:0", leaves_checked=m,
+        owner_placed=owned, place_s=f"{time.perf_counter() - t2:.1f}",
+        bit_equal=True, card=card,
+        note="shard shapes as the specs give (owner_placed: stacked leaves "
+             "whose layers split over 'data'); unshard bit for bit")
+    del placed, again
+
+
+def phase_dryrun(torch, gm, card):
+    """Phase 18: (a) the dry run on this machine, then (b)-(e) on
+    qwen2-vl-2b's phase-14 cell at full width. No frugal kernel runs:
+    both counts are set to 0 before and read after."""
+    from repro_torch.kernels import frugal_update as fk
+
+    t0 = time.perf_counter()
+    fk.launch_count = fk.scatter_launch_count = 0
+    dry_run_cells(torch, card)
+    model, state, batch = dry_run_train_state(torch, card)
+    dry_run_compression(torch, model, batch, card)
+    dry_run_reshard(torch, state, card)
+    del model, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if (fk.launch_count, fk.scatter_launch_count) != (0, 0):
+        fail(f"dryrun: launched {fk.launch_count} dense and "
+             f"{fk.scatter_launch_count} run kernels")
+    say("dryrun", phase_s=f"{time.perf_counter() - t0:.1f}",
+        frugal_kernel_launches=0, card=card)
+
+
 def main() -> None:
     import torch
 
@@ -4943,6 +5369,7 @@ def main() -> None:
     flush_entry["launches"] += phase_moe(torch, gm, card)
     flush_entry["launches"] += phase_ssm(torch, gm, card)
     phase_encdec(torch, gm, card)
+    phase_dryrun(torch, gm, card)
     torch.cuda.synchronize()
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("JAX or the JAX package was imported")

@@ -24,9 +24,15 @@ def build_model(cfg, device=None,
     come from ``generator`` (default: seed 0 on the device), so they
     follow the same distributions, not JAX's threefry bits. To run the
     JAX package's own weights use ``convert.params_from_numpy``.
+
+    On ``device="meta"`` nothing is drawn and no generator is made: every
+    parameter has the shape and dtype of the CPU path's and no storage
+    (the dry run's abstract model, ``launch.specs.abstract_params``).
     """
     dev = resolve_device(device)
-    if generator is None:
+    if dev.type == "meta":
+        generator = None
+    elif generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(0)
     if cfg.is_encdec:

@@ -1,7 +1,13 @@
-"""Placement across devices: the declarative topology, lane-sharded
-fleets and 2-D (data × lane) fleets with the pinned replica merge (port of
-the JAX package's ``parallel/``)."""
+"""Placement across devices: the model's sharding rules, gradient
+compression, the declarative topology, lane-sharded fleets and 2-D
+(data × lane) fleets with the pinned replica merge (port of the JAX
+package's ``parallel/``)."""
 
+from .sharding import (
+    param_shardings,
+    batch_shardings,
+    dp_axes,
+)
 from .topology import (
     DATA_AXIS,
     LANE_AXIS,
@@ -18,6 +24,9 @@ from .group_sharding import (
 )
 
 __all__ = [
+    "param_shardings",
+    "batch_shardings",
+    "dp_axes",
     "DATA_AXIS",
     "LANE_AXIS",
     "TopologySpec",

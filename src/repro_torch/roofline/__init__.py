@@ -1,8 +1,8 @@
 """Roofline analysis: the per-platform hardware registry and model
-pricing, the dense kernel's model on a CUDA card, the block autotuner and
-the dry-run reporter. The JAX package's ``hlo_parse`` (XLA HLO text and
-compiled-cost parsing) has no counterpart: nothing in the port produces
-either."""
+pricing, the dense kernel's model on a CUDA card, the block autotuner,
+the dry run's traced cost and placement collectives (``trace_cost``, the
+counterpart of the JAX package's ``hlo_parse``: the port has no HLO to
+parse) and the dry-run reporter."""
 
 from .analysis import (
     HW_REGISTRY,
@@ -25,6 +25,8 @@ from .kernel_model import (
 )
 from .autotune import (autotune_blocks, autotune_cache_info,
                        clear_autotune_cache)
+from .trace_cost import (collective_bytes, placement_collectives,
+                         traced_cost)
 
 __all__ = [
     "HW_REGISTRY",
@@ -45,4 +47,7 @@ __all__ = [
     "autotune_blocks",
     "autotune_cache_info",
     "clear_autotune_cache",
+    "collective_bytes",
+    "placement_collectives",
+    "traced_cost",
 ]

@@ -10,6 +10,7 @@ The state and step names load on first use: ``api.fleet`` imports
 import importlib
 
 _LAZY = {"TrainState": "train_state", "create_train_state": "train_state",
+         "abstract_train_state": "train_state",
          "make_train_step": "steps", "make_serve_step": "steps"}
 
 __all__ = list(_LAZY)

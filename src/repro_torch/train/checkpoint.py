@@ -102,8 +102,9 @@ def _leaf_crc32(arr) -> int:
 
 def _map(fn, tree, *rest):
     """Replace every node that ``fn(node, *nodes of rest)`` claims (returns
-    not None for); recurse through dicts and sequences of ``tree`` and the
-    same-shaped ``rest`` (NamedTuples keep their type)."""
+    not None for); recurse through dicts, sequences and dataclasses of
+    ``tree`` and the same-shaped ``rest`` (NamedTuples keep their type, a
+    dataclass is rebuilt from its init fields)."""
     out = fn(tree, *rest)
     if out is not None:
         return out
@@ -114,6 +115,11 @@ def _map(fn, tree, *rest):
         parts = [_map(fn, *xs) for xs in zip(tree, *rest)]
         return type(tree)(*parts) if hasattr(tree, "_fields") \
             else type(tree)(parts)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _map(fn, getattr(tree, f.name),
+                         *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree) if f.init})
     return tree
 
 
@@ -361,10 +367,13 @@ def read_manifest(ckpt_dir: str, step: Optional[int] = None) -> dict:
 
 
 def restore_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None,
-                       device=None) -> Tuple[Any, int]:
+                       device=None, shardings=None) -> Tuple[Any, int]:
     """Restore into the structure of ``like``; returns (state, step). Every
     leaf lands as a tensor on ``device`` (None: the card; raises where
-    there is none), sketches unpacked.
+    there is none), sketches unpacked. With ``shardings`` (``like``'s
+    structure down to ``parallel.sharding.Sharding``s), the leaves are
+    read on the host and placed instead: each becomes its
+    ``sharding.shard`` array, every shard on its device.
 
     Format-4 steps verify every leaf against the manifest CRC32s. A
     committed step that fails (or cannot be read) is quarantined and, when
@@ -373,6 +382,12 @@ def restore_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None,
     CheckpointCorruptError propagates. A step directory that vanishes
     mid-scan is skipped.
     """
+    if shardings is not None:
+        from repro_torch.parallel.sharding import place
+
+        state, step = restore_checkpoint(ckpt_dir, like, step=step,
+                                         device="cpu")
+        return place(state, shardings), step
     device = resolve_device(device)
     if step is not None:
         try:

@@ -9,8 +9,9 @@ split with the ported threefry (``core.rng.split``) as the JAX package
 splits its key. ``models.convert`` carries a state to and from the JAX
 package's stacked layout, which checkpoints use.
 
-The JAX package's ``abstract_train_state`` (an allocation-free dry run)
-waits for the port's dry run on ``meta`` tensors (ROADMAP A item 3).
+``abstract_train_state`` is the dry run's state: ``create_train_state``
+on a model whose tensors are all on ``meta`` (shapes and dtypes, no
+storage).
 """
 from __future__ import annotations
 
@@ -78,3 +79,20 @@ def create_train_state(model, optimizer: Optimizer, key,
         qclip = quantile_clip_init(len(clip_blocks(model)[0]), device=dev)
     return TrainState(params=model, opt_state=opt_state, step=0, rng=k_rng,
                       monitors=monitors, qclip=qclip)
+
+
+def abstract_train_state(model, optimizer: Optimizer, key,
+                         example_batch=None, with_monitors: bool = True,
+                         with_quantile_clip: bool = True) -> TrainState:
+    """``create_train_state`` on ``model``'s ``meta`` twin (``model``
+    itself where it is on meta, else a fresh ``build_model(model.cfg,
+    device="meta")``): the moments, the monitors' and the clip's planes
+    are meta tensors, the key words a host array. Allocates nothing."""
+    if model.device.type != "meta":
+        from repro_torch.models import build_model
+
+        model = build_model(model.cfg, device="meta")
+    return create_train_state(model, optimizer, key,
+                              example_batch=example_batch,
+                              with_monitors=with_monitors,
+                              with_quantile_clip=with_quantile_clip)

@@ -210,3 +210,66 @@ def test_six_program_placement_golden(golden_file, mode):
             assert_bits(t.numpy(), want, f"{key} torch fold {f}")
             for r in range(golden.SIX_DATA):
                 assert_bits(s[r], want, f"{key} sync {f} replica {r}")
+
+
+# ------------------------------------------------------ reshard_restore
+def test_reshard_restore_jax_train_checkpoint_onto_meshes(tmp_path,
+                                                          golden_file):
+    """The committed JAX TrainState checkpoint (the golden narrowed
+    yi-6b) restored through ``reshard_restore`` onto a (2, 2) mesh of
+    ``"cpu"``: every shard has the shape its spec gives (a stacked
+    leaf's layers split over 'data' by owner), and the shards reassemble
+    to the JAX package's state bit for bit: the leaves its
+    ``save_checkpoint`` wrote, in its pytree order. On the 1 x 1 test
+    mesh every leaf is whole on its device."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch.mesh import Mesh, _device_array, make_test_mesh
+    from repro_torch.models.convert import train_state_from_numpy
+    from repro_torch.parallel import sharding as sh
+
+    src = str(tmp_path / "train")
+    shutil.copytree(os.path.join(golden.CKPT_ROOT, "train"), src)
+    cfg = golden.serve_config(reduce_for_smoke(get_config(
+        golden.SERVE_ARCH)))
+    tree = golden.train_state_tree(golden_file)
+    like = train_state_from_numpy(cfg, tree, device="cpu")
+    jstep = ckpt.latest_step(src)
+    with np.load(os.path.join(src, f"step_{jstep:08d}", "shard_0.npz")) as z:
+        want = [z[f"leaf_{i}"] for i in range(len(z.files))]
+
+    def leaves(placed, shardings):
+        whole = sh.unplace(placed, shardings)
+        return [ckpt._host_array(x)
+                for x in ckpt._flatten(ckpt._pack_sketches(whole))]
+
+    meshes = {"2x2": Mesh(_device_array(["cpu"] * 4, (2, 2)),
+                          ("data", "model")),
+              "1x1": make_test_mesh(device="cpu")}
+    for name, mesh in meshes.items():
+        placed, step = elastic.reshard_restore(src, like, mesh)
+        assert step == jstep == int(placed.step.flat[0])
+        shardings = elastic.train_state_shardings(like, mesh)
+        got = leaves(placed, shardings)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a.reshape(-1).view(np.uint8),
+                                          b.reshape(-1).view(np.uint8))
+        specs = dict(sh.layout_leaves(shardings.params))
+        for path, shards in sh.layout_leaves(placed.params):
+            s = specs[path]
+            held = [c for c in np.ndindex(*mesh.devices.shape)
+                    if shards[c] is not None]
+            assert len(held) == mesh.size
+            whole = sh.unshard(shards, s)
+            assert all(tuple(shards[c].shape) == s.shard_shape(whole.shape)
+                       for c in held)
+        if name == "2x2":
+            wq = placed.params["stack"][0]["attn"]["wq"]
+            # [2 layers, 64, 32]: layer i on data index i, columns over model
+            assert [tuple(x.shape) for x in wq.flat] == [(1, 64, 32)] * 4
+        else:
+            arrays = sh.leaves(placed, sh.is_shards)
+            assert arrays and all(
+                a.shape == (1, 1) and a[0, 0].device.type == "cpu"
+                for a in arrays)

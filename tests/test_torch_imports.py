@@ -81,7 +81,11 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
               "repro_torch.monitor.moe_stats", "repro_torch.train",
               "repro_torch.train.train_state", "repro_torch.train.steps",
               "repro_torch.train.trainer", "repro_torch.launch.train",
-              "repro_torch.core.batched"):
+              "repro_torch.core.batched", "repro_torch.launch.mesh",
+              "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+              "repro_torch.parallel.sharding",
+              "repro_torch.parallel.compression",
+              "repro_torch.roofline.trace_cost"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -108,3 +112,19 @@ def test_sources_name_no_jax_or_repro_import():
             for m in IMPORT.finditer(f.read()):
                 offenders.append(f"{path}: {m.group(0).strip()}")
     assert len(paths) > 20 and not offenders, offenders
+
+
+def test_every_jax_module_has_a_counterpart_but_two():
+    """``comm`` of the two trees' ``*.py`` lists: only the removed
+    ``parallel/pipeline_parallel.py`` stubs and ``roofline/hlo_parse.py``
+    (XLA HLO text; ``roofline/trace_cost.py`` takes its place) have no
+    counterpart in the port."""
+    def modules(pkg):
+        root = os.path.join(SRC, pkg)
+        return {os.path.relpath(os.path.join(d, f), root)
+                for d, _, files in os.walk(root) for f in files
+                if f.endswith(".py")}
+
+    missing = modules("repro") - modules("repro_torch")
+    assert missing == {os.path.join("parallel", "pipeline_parallel.py"),
+                       os.path.join("roofline", "hlo_parse.py")}, missing
