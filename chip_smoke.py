@@ -319,7 +319,19 @@ each or more:
      restored through reshard_restore onto make_test_mesh(): every leaf
      bit-equal to the live state and on the card, the step as saved; then
      placed onto a (2, 2) mesh of cuda:0 repeated: every shard the shape
-     its spec gives and unshard bit for bit.
+     its spec gives and unshard bit for bit; (f) compressed_psum over a
+     data mesh of cuda:0 repeated 3 times (1/3 is inexact, so a
+     reciprocal multiply would show), replica r's leaves (e)'s 16 times a
+     float32 factor drawn by seed, two rounds (the second fed the
+     first's error feedback): every replica's average and new feedback
+     bit-equal to compress_grads on host copies folded in numpy in
+     replica order over the IEEE quotient, the average within the JAX
+     8-way test's atol 0.05 of the float32 mean (scaled by the leaf's
+     max |g| over that test's inputs' max |g|), ms a call, bytes moved
+     to replica 0 against float32; (g) two gloo ranks on 127.0.0.1, each
+     seeing the card, resolve TopologySpec(data=2, lanes=1) against the
+     gathered global device list (one device a rank, a (2, 1) mesh2d())
+     within 60 s to initialise and 180 s in all.
 
 frugal_update_auto launches B1 at the roofline autotuner's block size
 (repro_torch.roofline.autotune: 256 at the shapes of phases 5 and 9,
@@ -329,6 +341,7 @@ fewer threads at phase 10's). The last line is {"ok": true, "device":
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -1956,11 +1969,17 @@ def phase_service(torch, gm, card):
     prog = make_program("2u-decay", half_life=gm.SERVICE_HALF_LIFE)
     spec = FleetSpec(num_groups=SVC_G, quantiles=(0.5,),
                      chunk_t=SVC_CHUNK_T, program=prog)
-    chunks, make_ms = [], []
-    for k in range(SVC_CHUNKS):
+    def make(k):
         t0 = time.perf_counter()
-        chunks.append(gm.service_chunk(k, SVC_CHUNK_T, SVC_G))
-        make_ms.append((time.perf_counter() - t0) * 1e3)
+        chunk = gm.service_chunk(k, SVC_CHUNK_T, SVC_G)
+        return chunk, (time.perf_counter() - t0) * 1e3
+
+    # numpy fills each chunk from its own seed with the GIL released:
+    # made on every core at once (the same chunks as one after another)
+    t_make = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
+        chunks, make_ms = zip(*pool.map(make, range(SVC_CHUNKS)))
+    chunks, making_s = list(chunks), time.perf_counter() - t_make
     chunk_bytes = chunks[0].nbytes
     items_total = SVC_CHUNKS * SVC_CHUNK_T * SVC_G
     say("service", groups=SVC_G, quantiles="0.5", program="2u-decay",
@@ -1971,7 +1990,7 @@ def phase_service(torch, gm, card):
     say("service", make_chunk_ms=f"{make_ms[0]:.2f}",
         median_make_chunk_ms=f"{statistics.median(make_ms):.2f}",
         note="numpy normal(50, 15) on the host from seed (17, k), before "
-             "any timed window")
+             "any timed window, one thread a core")
 
     # (a) ingest only, put-ahead depth 1; (a0) the same, staged in line;
     # in turns (a, a0, a0, a) after a warm-up run over 4 chunks, whose
@@ -2288,7 +2307,7 @@ def phase_service(torch, gm, card):
         note="the main path's runs (a, a0, a0, a, b): one per chunk and "
              "one per telemetry flush")
     say("service", phase_s=f"{time.perf_counter() - phase_t0:.1f}",
-        making_chunks_s=f"{sum(make_ms) / 1e3:.1f}")
+        making_chunks_s=f"{making_s:.1f}")
     if min(run["launches"] for _, run in main_runs) < SVC_CHUNKS \
             or slo_launches == 0:
         fail("service: the main path did not go through the kernels")
@@ -4959,6 +4978,32 @@ DRY_BUDGET_S = 90.0
 DRY_RESIDENCY_TOL = 0.005
 COMPRESS_SEED = 0
 COMPRESS_LEAVES = 16
+PSUM_REPLICAS = 3        # 1/3 is inexact: a reciprocal multiply would show
+PSUM_ATOL = 0.05         # tests/test_fault_tolerance.py's 8-way check
+RANKS_INIT_S = 60
+RANKS_ALL_S = 180
+
+# (g): one rank of the placement check; argv = port, rank, world, init s.
+RANK_SCRIPT = r"""
+import datetime, sys, time
+t0 = time.perf_counter()
+port, rank, world = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+import torch
+import torch.distributed as dist
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=world,
+                        timeout=datetime.timedelta(seconds=int(sys.argv[4])))
+init_s = time.perf_counter() - t0
+from repro_torch.parallel.topology import RankDevice, TopologySpec
+topo = TopologySpec(data=world, lanes=1).resolve()
+want = tuple(RankDevice(r, torch.device("cuda", 0)) for r in range(world))
+assert torch.cuda.device_count() == 1, torch.cuda.device_count()
+assert topo.on_devices and topo.devices == want, topo.devices
+assert topo.mesh2d().shape == (world, 1)
+dist.barrier()
+dist.destroy_process_group()
+print(f"RANK_OK {rank} init_s={init_s:.2f} s={time.perf_counter() - t0:.2f}")
+"""
 
 
 def say_dry_record(rec, seconds, card):
@@ -5193,10 +5238,142 @@ def dry_run_compression(torch, model, batch, card):
     small = comp.wire_bytes(grads, compressed=True)
     say("compress", check="e", wire_bytes_uncompressed=full,
         wire_bytes_compressed=small, ratio=f"{full / small:.4f}", card=card)
+    leaves = {k: grads[k] for k in chosen}
     del grads, ef, new_ef
     model.zero_grad(set_to_none=True)
     gc.collect()
     torch.cuda.empty_cache()
+    return leaves
+
+
+def dry_run_psum(torch, leaves, card):
+    """(f) compressed_psum over a data mesh of cuda:0 repeated
+    PSUM_REPLICAS times: replica r's gradients are ``leaves`` (e)'s
+    times a float32 factor drawn by COMPRESS_SEED; two rounds, the
+    second fed the first's ef. Every replica's average and new ef
+    bit-equal to compress_grads on host copies, folded in numpy in
+    replica order and divided by float32 R; the average within
+    PSUM_ATOL of the float32 mean, scaled by the leaf's max |g| over the
+    JAX 8-way test's inputs' max |g|."""
+    import numpy as np
+    from repro_torch.parallel import compression as comp
+    from repro_torch.parallel.topology import TopologySpec
+
+    r_n = PSUM_REPLICAS
+    mesh = TopologySpec(data=r_n, lanes=1,
+                        devices=(torch.device("cuda", 0),) * r_n).mesh2d()
+    factors = np.random.default_rng(COMPRESS_SEED).uniform(
+        0.5, 2.0, r_n).astype(np.float32)
+    grads = [{k: (v * torch.tensor(factors[r], device=v.device)).to(
+        mesh[r, 0]) for k, v in leaves.items()} for r in range(r_n)]
+    host_g = [{k: v.cpu() for k, v in g.items()} for g in grads]
+    ef = [comp.ef_init(g) for g in grads]
+    host_ef = [comp.ef_init(g) for g in host_g]
+    # the JAX test's inputs: its atol 0.05 is against their max |g|
+    jax_amax = float(np.abs(np.random.default_rng(0).normal(
+        0, 1, (8, 64)).astype(np.float32)).max())
+    n = np.float32(r_n)
+    # the float32 mean and max |g| of each leaf (the same in both rounds)
+    means, amaxes = {}, {}
+    for k in leaves:
+        mean = host_g[0][k].numpy()
+        for g in host_g[1:]:
+            mean = mean + g[k].numpy()
+        means[k] = mean / n
+        amaxes[k] = max(float(g[k].abs().max()) for g in host_g)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    for rnd in (1, 2):
+        a.record()
+        avgs, new_ef = comp.compressed_psum(grads, ef)
+        b.record()
+        torch.cuda.synchronize()
+        packed = [comp.compress_grads(g, e) for g, e in zip(host_g, host_ef)]
+        worst, recip = 0.0, 0
+        for k in avgs[0]:
+            fold = comp.dequantize_int8(packed[0][0][k],
+                                        packed[0][1][k]).numpy()
+            for q, s, _ in packed[1:]:
+                fold = fold + comp.dequantize_int8(q[k], s[k]).numpy()
+            want = fold / n
+            recip += int((fold * (np.float32(1) / n) != want).sum())
+            on_card = torch.from_numpy(want).to(mesh[0, 0])
+            bad = [r for r in range(r_n)
+                   if avgs[r][k].device != mesh[r, 0]
+                   or not bits_equal(torch, avgs[r][k], on_card)
+                   or not bits_equal(torch, new_ef[r][k], packed[r][2][k])]
+            if bad:
+                fail(f"psum (f) round {rnd}: {k} differs from the host fold "
+                     f"on replicas {bad}")
+            err = float(np.abs(want - means[k]).max())
+            worst = max(worst, err * jax_amax / (PSUM_ATOL * amaxes[k])
+                        if amaxes[k] else err)
+        if worst > 1.0:
+            fail(f"psum (f) round {rnd}: the average is {worst:.3f} of the "
+                 "scaled atol from the mean")
+        say("psum", check="f", round=rnd, replicas=r_n,
+            mesh=f"{r_n}x1 of cuda:0", leaves=len(avgs[0]),
+            values_per_replica=sum(v.numel() for v in avgs[0].values()),
+            call_ms=f"{a.elapsed_time(b):.3f}",
+            err_over_scaled_atol=f"{worst:.4f}",
+            values_where_reciprocal_differs=recip, bit_equal=True, card=card)
+        ef, host_ef = new_ef, [p[2] for p in packed]
+        del avgs, packed
+    moved = (r_n - 1) * comp.wire_bytes(grads[0], compressed=True)
+    full = (r_n - 1) * comp.wire_bytes(grads[0], compressed=False)
+    say("psum", check="f", bytes_to_replica0=moved, float32_bytes=full,
+        ratio=f"{full / moved:.6f}",
+        check_s=f"{time.perf_counter() - t0:.1f}", card=card,
+        note="int8 payloads and scales of replicas 1..R-1 to replica 0's "
+             "device; all on one card here, so no link is crossed")
+    del grads, ef, new_ef, host_g, host_ef
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def placement_ranks(card):
+    """(g) Two gloo ranks on 127.0.0.1, each seeing the card, resolve
+    TopologySpec(data=2, lanes=1) against the gathered global device
+    list: one cuda:0 a rank, in rank order, a (2, 1) mesh2d(). Within
+    RANKS_INIT_S to initialise and RANKS_ALL_S in all; a rank that fails
+    or outlives the bound fails the run."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES=visible.split(",")[0] if visible
+               else "0")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK_SCRIPT, port, str(r), "2",
+         str(RANKS_INIT_S)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            left = RANKS_ALL_S - (time.perf_counter() - t0)
+            outs.append(p.communicate(timeout=max(left, 1.0)))
+    except subprocess.TimeoutExpired:
+        fail(f"placement (g): the ranks outlived {RANKS_ALL_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or f"RANK_OK {r}" not in out:
+            fail(f"placement (g): rank {r} exited {p.returncode}: "
+                 f"{out[-500:]}{err[-2000:]}")
+    said = [out.split("RANK_OK", 1)[1].split() for out, _ in outs]
+    say("placement", check="g", ranks=2, backend="gloo",
+        global_devices="(0,cuda:0),(1,cuda:0)", mesh2d="(2, 1)",
+        per_rank=";".join(" ".join(x) for x in said),
+        wall_s=f"{wall:.2f}", bound_s=RANKS_ALL_S, card=card)
 
 
 def dry_run_reshard(torch, state, card):
@@ -5301,8 +5478,9 @@ def dry_run_reshard(torch, state, card):
 
 
 def phase_dryrun(torch, gm, card):
-    """Phase 18: (a) the dry run on this machine, then (b)-(e) on
-    qwen2-vl-2b's phase-14 cell at full width. No frugal kernel runs:
+    """Phase 18: (a) the dry run on this machine, then (b)-(f) on
+    qwen2-vl-2b's phase-14 cell at full width, then (g) placement over
+    two ranks. No frugal kernel runs:
     both counts are set to 0 before and read after."""
     from repro_torch.kernels import frugal_update as fk
 
@@ -5310,11 +5488,14 @@ def phase_dryrun(torch, gm, card):
     fk.launch_count = fk.scatter_launch_count = 0
     dry_run_cells(torch, card)
     model, state, batch = dry_run_train_state(torch, card)
-    dry_run_compression(torch, model, batch, card)
+    leaves = dry_run_compression(torch, model, batch, card)
+    dry_run_psum(torch, leaves, card)
+    del leaves
     dry_run_reshard(torch, state, card)
     del model, state, batch
     gc.collect()
     torch.cuda.empty_cache()
+    placement_ranks(card)
     if (fk.launch_count, fk.scatter_launch_count) != (0, 0):
         fail(f"dryrun: launched {fk.launch_count} dense and "
              f"{fk.scatter_launch_count} run kernels")

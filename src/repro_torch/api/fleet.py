@@ -54,7 +54,7 @@ from repro_torch.core.sketch import GroupedQuantileSketch, PackedSketchState
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.parallel.group_sharding import ShardedGroupFleet
 from repro_torch.parallel.mesh2d import Mesh2DFleet
-from repro_torch.parallel.topology import TopologySpec
+from repro_torch.parallel.topology import TopologySpec, local_devices
 from repro_torch.resilience import chaos
 from repro_torch.resilience import health as health_mod
 from repro_torch.train import checkpoint as ckpt
@@ -82,13 +82,14 @@ def _home_device(spec: FleetSpec, device=None) -> torch.device:
     topo = spec.topology
     if not topo.on_devices:
         return resolve_device(device)
+    devices = local_devices(topo.devices)
     if device is not None and not all(
-            _same_device(torch.device(device), d) for d in topo.devices):
+            _same_device(torch.device(device), d) for d in devices):
         raise ValueError(
             f"device={device!r} contradicts the topology's devices "
-            f"{topo.devices}; drop device= or name the devices in the "
+            f"{devices}; drop device= or name the devices in the "
             "TopologySpec")
-    return topo.devices[0]
+    return devices[0]
 
 
 def _lane_tick(program, planes, ticks, q, items, seed, g_offset, scalars):

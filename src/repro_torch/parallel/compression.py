@@ -17,12 +17,20 @@ scale is the IEEE quotient ``amax / 127`` (a float32 tensor on the
 operand's device divides: on CUDA a division by a Python number is a
 multiplication by its reciprocal, which differs for about one value in
 twenty), and ``torch.round`` rounds half to even as ``jnp.round`` does.
-The all-reduce itself (``compressed_psum``) needs a process group and is
-not ported yet.
+
+``compressed_psum`` is the all-reduce placed from one controller process:
+it takes the data replicas' gradients and error feedback as sequences in
+replica order, each replica's tensors on its own device, and needs no
+process group. Its bits are the JAX function's under ``shard_map``: each
+replica compresses on its own device; the int8 payloads and scales (the
+wire) move to replica 0's device, are dequantized there and summed in a
+left fold in replica order; the sum is divided by R as a float32 tensor
+on the operands' device (the IEEE quotient, not a reciprocal multiply)
+and copied back to every replica's device.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import torch
 
@@ -63,6 +71,31 @@ def decompress_grads(q: Grads, s: Grads) -> Dict[str, torch.Tensor]:
     return {k: dequantize_int8(q[k], s[k]) for k in q}
 
 
+def compressed_psum(grads: Sequence[Grads], ef: Sequence[Grads]
+                    ) -> Tuple[List[Dict[str, torch.Tensor]],
+                               List[Dict[str, torch.Tensor]]]:
+    """Error-feedback int8 all-reduce over R data replicas: ``grads[r]``
+    and ``ef[r]`` are replica r's dicts. Returns (averages, new efs), one
+    dict per replica on that replica's devices."""
+    if len(grads) != len(ef) or not grads:
+        raise ValueError(f"compressed_psum needs one ef per replica and at "
+                         f"least one replica, got {len(grads)} gradients "
+                         f"and {len(ef)} efs")
+    packed = [compress_grads(g, e) for g, e in zip(grads, ef)]
+    avg0 = {}
+    for k, g0 in grads[0].items():
+        dev = g0.device
+        acc = None
+        for q, s, _ in packed:
+            deq = dequantize_int8(q[k].to(dev), s[k].to(dev))
+            acc = deq if acc is None else acc + deq
+        n = torch.full((), len(grads), dtype=torch.float32, device=dev)
+        avg0[k] = acc / n
+    avgs = [avg0] + [{k: v.to(g[k].device, copy=True)
+                      for k, v in avg0.items()} for g in grads[1:]]
+    return avgs, [new_ef for _, _, new_ef in packed]
+
+
 def wire_bytes(grads: Grads, compressed: bool) -> int:
     """Bytes one all-reduce sends: 1 a value and a float32 scale a
     tensor compressed, 4 a value uncompressed."""
@@ -72,4 +105,4 @@ def wire_bytes(grads: Grads, compressed: bool) -> int:
 
 
 __all__ = ["quantize_int8", "dequantize_int8", "ef_init", "compress_grads",
-           "decompress_grads", "wire_bytes"]
+           "decompress_grads", "compressed_psum", "wire_bytes"]

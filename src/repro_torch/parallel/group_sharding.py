@@ -34,7 +34,7 @@ from repro_torch.core.drift import is_windowed as drift_is_windowed
 from repro_torch.core.sketch import GroupedQuantileSketch, PackedSketchState
 from repro_torch.resilience import chaos
 
-from .topology import LANE_AXIS, _device_array
+from .topology import LANE_AXIS, _device_array, local_devices
 
 GROUP_AXIS = LANE_AXIS
 
@@ -55,8 +55,7 @@ def _mesh_devices(mesh) -> Tuple[torch.device, ...]:
     tuple of torch.devices."""
     if mesh is None:
         mesh = group_mesh()
-    devs = tuple(torch.device(d)
-                 for d in np.asarray(mesh, dtype=object).reshape(-1))
+    devs = local_devices(np.asarray(mesh, dtype=object).reshape(-1))
     if not devs:
         raise ValueError("a mesh needs at least one device")
     return devs

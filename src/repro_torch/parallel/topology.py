@@ -22,6 +22,14 @@ port's counterpart of a forced host device count, which drives the
 per-device execution on one card or on the CPU. ``devices=None`` resolves
 against the visible CUDA devices: a 1-D topology with too few raises, a
 2-D one falls back to the sequential replica loop (the same bits).
+
+Under a ``torch.distributed`` process group, ``devices=None`` resolves
+against the group's global device list instead, as JAX's does against
+``jax.devices()`` under ``jax.distributed``: every rank's local devices
+(its visible CUDA devices, or one ``cpu`` device where it has none), in
+rank order, each a ``RankDevice``. The list is gathered once per process
+group, a collective call: every rank resolves. Fleets place only this
+rank's devices; a topology holding another rank's raises.
 """
 from __future__ import annotations
 
@@ -30,11 +38,64 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 DATA_AXIS = "data"
 LANE_AXIS = "groups"
 
 PLACEMENTS = ("single", "sharded", "mesh2d")
+
+
+@dataclasses.dataclass(frozen=True)
+class RankDevice:
+    """One entry of a process group's global device list: ``device`` as
+    rank ``rank`` names it locally."""
+
+    rank: int
+    device: torch.device
+
+
+# (process group, its global device list): gathered once per group.
+_gathered: Optional[Tuple[object, Tuple[RankDevice, ...]]] = None
+
+
+def global_devices() -> Tuple[RankDevice, ...]:
+    """The initialised default process group's devices: each rank's
+    visible CUDA devices (one ``cpu`` device on a rank with none), in
+    rank order. The first call per group is a collective
+    (``all_gather_object``, bounded by the group's timeout): every rank
+    must make it."""
+    global _gathered
+    group = dist.group.WORLD
+    if _gathered is None or _gathered[0] is not group:
+        n = torch.cuda.device_count()
+        local = [f"cuda:{i}" for i in range(n)] if n else ["cpu"]
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, local)
+        _gathered = (group, tuple(RankDevice(rank, torch.device(d))
+                                  for rank, names in enumerate(ranks)
+                                  for d in names))
+    return _gathered[1]
+
+
+def local_devices(devices) -> Tuple[torch.device, ...]:
+    """A resolved device tuple as this process's torch.devices: this
+    rank's ``RankDevice`` entries unwrapped. Another rank's entry (any,
+    outside a process group) raises: a fleet places and syncs from one
+    process."""
+    rank = dist.get_rank() if dist.is_available() and \
+        dist.is_initialized() else None
+    out = []
+    for d in devices:
+        if isinstance(d, RankDevice):
+            if d.rank != rank:
+                raise ValueError(
+                    f"the topology holds rank {d.rank}'s device {d.device}; "
+                    "a rank-aware fleet is not ported: fleets place only "
+                    "this process's devices")
+            d = d.device
+        out.append(torch.device(d))
+    return tuple(out)
 
 
 def _device_array(devices, shape) -> np.ndarray:
@@ -49,10 +110,11 @@ class TopologySpec:
 
     data    — stream replicas along the data axis. 1 = no data axis.
     lanes   — lane-axis shards. 1 = lanes unsharded.
-    devices — None (resolve against the visible CUDA devices), an int
-              (that many of them), or an explicit tuple of ``data ×
-              lanes`` devices, replica-major (device ``r·lanes + s`` holds
-              replica r's lane shard s).
+    devices — None (resolve against the visible CUDA devices, or the
+              process group's global list), an int (that many of them),
+              or an explicit tuple of ``data × lanes`` devices (or
+              ``RankDevice``s), replica-major (device ``r·lanes + s``
+              holds replica r's lane shard s).
 
     Frozen and hashable: it rides as static metadata on FleetSpec.
     """
@@ -72,7 +134,8 @@ class TopologySpec:
         object.__setattr__(self, "lanes", lanes)
         devs = self.devices
         if devs is not None and not isinstance(devs, (int, np.integer)):
-            devs = tuple(torch.device(d) for d in devs)
+            devs = tuple(d if isinstance(d, RankDevice) else torch.device(d)
+                         for d in devs)
             if len(devs) != data * lanes:
                 raise ValueError(
                     f"TopologySpec(data={data}, lanes={lanes}) needs "
@@ -102,7 +165,8 @@ class TopologySpec:
 
         single   — devices forced to None (nothing to place).
         sharded  — exactly ``lanes`` devices, the first visible CUDA
-                   devices when unspecified; too few raises.
+                   devices (under a process group, the first of
+                   ``global_devices()``) when unspecified; too few raises.
         mesh2d   — ``data · lanes`` devices when that many are visible;
                    otherwise, with none given explicitly, devices stays
                    None and the fleet runs the sequential replica loop.
@@ -120,16 +184,20 @@ class TopologySpec:
             devs = None
         if devs is not None:
             return self
-        avail = torch.cuda.device_count()
-        if avail < need:
+        if dist.is_available() and dist.is_initialized():
+            avail, what = global_devices(), "device(s) in the process group"
+        else:
+            avail = tuple(torch.device("cuda", i)
+                          for i in range(torch.cuda.device_count()))
+            what = "CUDA device(s)"
+        if len(avail) < need:
             if self.placement == "sharded":
                 raise ValueError(
                     f"TopologySpec(lanes={self.lanes}) needs {need} "
-                    f"devices, found {avail} CUDA device(s); name them "
+                    f"devices, found {len(avail)} {what}; name them "
                     "explicitly with devices=")
             return dataclasses.replace(self, devices=None)  # loop fallback
-        return dataclasses.replace(
-            self, devices=tuple(torch.device("cuda", i) for i in range(need)))
+        return dataclasses.replace(self, devices=avail[:need])
 
     @property
     def on_devices(self) -> bool:
@@ -173,4 +241,5 @@ class TopologySpec:
         return TopologySpec(lanes=len(devs), devices=devs)
 
 
-__all__ = ["DATA_AXIS", "LANE_AXIS", "PLACEMENTS", "TopologySpec"]
+__all__ = ["DATA_AXIS", "LANE_AXIS", "PLACEMENTS", "RankDevice",
+           "TopologySpec", "global_devices", "local_devices"]
