@@ -47,6 +47,7 @@ from typing import Iterable, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.platform import resolve_device
 from repro_torch.core import frugal, streaming
 from repro_torch.core import rng as crng
@@ -292,43 +293,44 @@ class QuantileFleet:
         original stream); resume with
         ``err.fleet.ingest_stream(stream, skip_items=err.items_applied)``.
         """
-        self._require_scalar_clock("ingest_stream")
-        chunk_t = chunk_t or self.spec.chunk_t
-        cur = self.cursor
-        skip_items = int(skip_items)
-        if skip_items:
-            chunks = streaming.drop_leading_items(chunks, skip_items,
-                                                  self.num_groups)
-        counted = [0]
+        with tracing.span("fleet.ingest_stream"):
+            self._require_scalar_clock("ingest_stream")
+            chunk_t = chunk_t or self.spec.chunk_t
+            cur = self.cursor
+            skip_items = int(skip_items)
+            if skip_items:
+                chunks = streaming.drop_leading_items(chunks, skip_items,
+                                                      self.num_groups)
+            counted = [0]
 
-        def counting():
-            for c in chunks:
-                shape = np.shape(c)
-                counted[0] += shape[0] if shape else 1
-                yield c
+            def counting():
+                for c in chunks:
+                    shape = np.shape(c)
+                    counted[0] += shape[0] if shape else 1
+                    yield c
 
-        try:
-            if isinstance(self.state, _MESHED):
-                sk = self.state.ingest_stream(
-                    counting(), seed=cur.seed, chunk_t=chunk_t,
-                    t_offset=cur.t_offset, g_offset=cur.g_offset)
-            else:
-                sk = streaming.ingest_stream(
-                    self.state, counting(), cur.seed, chunk_t=chunk_t,
-                    t_offset=cur.t_offset, g_offset=cur.g_offset,
-                    lanes_per_group=self.num_quantiles,
-                    plain=self.spec.backend == "jnp")
-        except chaos.StreamInterrupted as e:
-            applied = e.items_applied
-            partial = dataclasses.replace(self, state=e.state,
-                                          cursor=cur.advance(applied))
-            total = skip_items + applied
-            raise chaos.StreamInterrupted(
-                f"{e}; resume with err.fleet.ingest_stream(stream, "
-                f"skip_items={total}) over the ORIGINAL stream",
-                state=e.state, fleet=partial, items_applied=total) from e
-        return dataclasses.replace(self, state=sk,
-                                   cursor=cur.advance(counted[0]))
+            try:
+                if isinstance(self.state, _MESHED):
+                    sk = self.state.ingest_stream(
+                        counting(), seed=cur.seed, chunk_t=chunk_t,
+                        t_offset=cur.t_offset, g_offset=cur.g_offset)
+                else:
+                    sk = streaming.ingest_stream(
+                        self.state, counting(), cur.seed, chunk_t=chunk_t,
+                        t_offset=cur.t_offset, g_offset=cur.g_offset,
+                        lanes_per_group=self.num_quantiles,
+                        plain=self.spec.backend == "jnp")
+            except chaos.StreamInterrupted as e:
+                applied = e.items_applied
+                partial = dataclasses.replace(self, state=e.state,
+                                              cursor=cur.advance(applied))
+                total = skip_items + applied
+                raise chaos.StreamInterrupted(
+                    f"{e}; resume with err.fleet.ingest_stream(stream, "
+                    f"skip_items={total}) over the ORIGINAL stream",
+                    state=e.state, fleet=partial, items_applied=total) from e
+            return dataclasses.replace(self, state=sk,
+                                       cursor=cur.advance(counted[0]))
 
     # ---------------------------------------------------------- event ingest
     def _on_device(self, x, dtype) -> torch.Tensor:

@@ -17,6 +17,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.resilience import chaos
 
 from . import rng as crng
@@ -182,7 +183,8 @@ def ingest_stream(sketch: GroupedQuantileSketch, chunks: Iterable, seed,
                             sketch.device)
     while True:
         try:
-            block, t0 = next(blocks)
+            with tracing.span("stream.next_block"):
+                block, t0 = next(blocks)
         except StopIteration:
             break
         except (ValueError, TypeError):

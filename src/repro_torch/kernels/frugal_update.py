@@ -31,6 +31,7 @@ import ctypes
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import frugal
 from repro_torch.core import rng as crng
 
@@ -139,53 +140,56 @@ def frugal_program_dense(program, items, words, quantile, seed,
     included).
     """
     global launch_count
-    if items.device.type == "cpu":
-        return frugal_program_dense_reference(
-            program, items, words, quantile, seed, scalars,
-            t_offset=t_offset, g_offset=g_offset,
-            lanes_per_group=lanes_per_group)
-    if items.device.type != "cuda":
-        raise ValueError(f"no dense kernel for device {items.device}")
-    _check_operands(program, items, words, quantile, lanes_per_group)
-    family = program.kernel_family
-    if family not in FAMILY_IDS:
-        raise ValueError(f"no kernel instantiation for program family "
-                         f"{family!r}; kernel families: {tuple(FAMILY_IDS)}")
-    if block_g <= 0 or block_g > 1024 or block_g % 32:
-        raise ValueError(f"block_g must be a multiple of 32 in [32, 1024], "
-                         f"got {block_g}")
-    for x in (items, *words, quantile):
-        if not x.is_contiguous():
-            raise ValueError("the dense kernel takes contiguous tensors")
-    t_len, g = items.shape
-    outs = tuple(torch.empty_like(w) for w in words)
-    if t_len == 0:
-        for o, w in zip(outs, words):
-            o.copy_(w)
-        return outs
-    slots = _scalar_slots(program, scalars) + (0, 0)
-    ptr_in = [w.data_ptr() for w in words] + [None] * (4 - len(words))
-    ptr_out = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
-    from .build import load_library
+    with tracing.span("kernels.dense_launch"):
+        if items.device.type == "cpu":
+            return frugal_program_dense_reference(
+                program, items, words, quantile, seed, scalars,
+                t_offset=t_offset, g_offset=g_offset,
+                lanes_per_group=lanes_per_group)
+        if items.device.type != "cuda":
+            raise ValueError(f"no dense kernel for device {items.device}")
+        _check_operands(program, items, words, quantile, lanes_per_group)
+        family = program.kernel_family
+        if family not in FAMILY_IDS:
+            raise ValueError(f"no kernel instantiation for program family "
+                             f"{family!r}; kernel families: "
+                             f"{tuple(FAMILY_IDS)}")
+        if block_g <= 0 or block_g > 1024 or block_g % 32:
+            raise ValueError(f"block_g must be a multiple of 32 in "
+                             f"[32, 1024], got {block_g}")
+        for x in (items, *words, quantile):
+            if not x.is_contiguous():
+                raise ValueError("the dense kernel takes contiguous tensors")
+        t_len, g = items.shape
+        outs = tuple(torch.empty_like(w) for w in words)
+        if t_len == 0:
+            for o, w in zip(outs, words):
+                o.copy_(w)
+            return outs
+        slots = _scalar_slots(program, scalars) + (0, 0)
+        ptr_in = [w.data_ptr() for w in words] + [None] * (4 - len(words))
+        ptr_out = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
+        from .build import load_library
 
-    producer = ctypes.c_int32(0)
-    with torch.cuda.device(items.device):
-        stream = torch.cuda.current_stream(items.device).cuda_stream
-        err = load_library().frugal_dense_launch(
-            FAMILY_IDS[family], items.data_ptr(), quantile.data_ptr(),
-            *ptr_in, *ptr_out, t_len, g, lanes_per_group,
-            crng.wrap_i32(seed), crng.wrap_i32(t_offset),
-            crng.wrap_i32(g_offset), slots[0], slots[1], block_g, stream,
-            ctypes.byref(producer))
-    if err <= -_ENCODE_ERROR_BASE:
-        raise RuntimeError(f"frugal_dense_launch: the items' tensor map "
-                           f"could not be encoded: CUresult "
-                           f"{-err - _ENCODE_ERROR_BASE}")
-    if err != 0:
-        raise RuntimeError(f"frugal_dense_launch failed: cudaError_t {err}")
-    launch_count += 1
-    producer_launch_count[PRODUCERS[producer.value]] += 1
-    return outs
+        producer = ctypes.c_int32(0)
+        with torch.cuda.device(items.device):
+            stream = torch.cuda.current_stream(items.device).cuda_stream
+            err = load_library().frugal_dense_launch(
+                FAMILY_IDS[family], items.data_ptr(), quantile.data_ptr(),
+                *ptr_in, *ptr_out, t_len, g, lanes_per_group,
+                crng.wrap_i32(seed), crng.wrap_i32(t_offset),
+                crng.wrap_i32(g_offset), slots[0], slots[1], block_g, stream,
+                ctypes.byref(producer))
+        if err <= -_ENCODE_ERROR_BASE:
+            raise RuntimeError(f"frugal_dense_launch: the items' tensor map "
+                               f"could not be encoded: CUresult "
+                               f"{-err - _ENCODE_ERROR_BASE}")
+        if err != 0:
+            raise RuntimeError(f"frugal_dense_launch failed: cudaError_t "
+                               f"{err}")
+        launch_count += 1
+        producer_launch_count[PRODUCERS[producer.value]] += 1
+        return outs
 
 
 # ------------------------------------------------------------ sparse events

@@ -31,6 +31,7 @@ import contextvars
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import rng as crng
 
 from .frugal_update import (DEFAULT_BLOCK_G, frugal_program_dense,
@@ -51,13 +52,14 @@ def _dense(items, planes, quantile, seed, t_offset, g_offset, program,
     device = planes[0].device
     if items.device != device:
         raise ValueError(f"items on {items.device}, state on {device}")
-    items = items.to(torch.float32).contiguous()
-    lanes = planes[0].shape[0]
-    q = torch.broadcast_to(
-        torch.as_tensor(quantile, dtype=torch.float32, device=device),
-        (lanes,)).contiguous()
     layout = program.layout
-    words = tuple(w.contiguous() for w in layout.pack_planes(planes))
+    with tracing.span("ops.pack"):
+        items = items.to(torch.float32).contiguous()
+        lanes = planes[0].shape[0]
+        q = torch.broadcast_to(
+            torch.as_tensor(quantile, dtype=torch.float32, device=device),
+            (lanes,)).contiguous()
+        words = tuple(w.contiguous() for w in layout.pack_planes(planes))
     t_len = items.shape[0]
     step = t_len if block_t is None else block_t
     for r0 in range(0, t_len, max(step, 1)):
@@ -65,7 +67,8 @@ def _dense(items, planes, quantile, seed, t_offset, g_offset, program,
             program, items[r0:r0 + step], words, q, seed,
             t_offset=crng.wrap_i32(t_offset + r0), g_offset=g_offset,
             lanes_per_group=lanes_per_group, block_g=block_g)
-    return layout.unpack_words(words)
+    with tracing.span("ops.unpack"):
+        return layout.unpack_words(words)
 
 
 def frugal_update_blocked(items, planes, quantile, seed, t_offset=0,
@@ -142,10 +145,14 @@ def frugal_update_auto(items, planes, quantile, key=None, *, seed=None,
     (cached per family x layout x card x shape) on CUDA tensors; an
     explicit ``block_g`` is obeyed. Under ``block_override`` the
     override's blocks apply."""
-    block_g, block_t = _auto_blocks(program, items.shape, items.device,
-                                    lanes_per_group, block_g)
-    return _dense(items, planes, quantile, _as_seed(key, seed), t_offset,
-                  g_offset, program, lanes_per_group, block_g, block_t)
+    with tracing.span("ops.update_auto"):
+        with tracing.span("ops.blocks"):
+            block_g, block_t = _auto_blocks(program, items.shape,
+                                            items.device, lanes_per_group,
+                                            block_g)
+        return _dense(items, planes, quantile, _as_seed(key, seed),
+                      t_offset, g_offset, program, lanes_per_group, block_g,
+                      block_t)
 
 
 def frugal_update_sparse(lanes, items, mask, planes, ticks, quantile, seed,
