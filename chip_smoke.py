@@ -2983,7 +2983,7 @@ def launch_shapes(into):
     block_g)."""
     from repro_torch.kernels import ops
 
-    real = ops.frugal_program_dense
+    real = ops.frugal_program_dense_planes
 
     def counted(program, items, *args, **kw):
         if items.device.type == "cuda" and items.shape[0]:
@@ -2991,11 +2991,11 @@ def launch_shapes(into):
                   kw.get("lanes_per_group", 1), kw["block_g"])] += 1
         return real(program, items, *args, **kw)
 
-    ops.frugal_program_dense = counted
+    ops.frugal_program_dense_planes = counted
     try:
         yield into
     finally:
-        ops.frugal_program_dense = real
+        ops.frugal_program_dense_planes = real
 
 
 def check_plan(fk, km, fam, t, g, q, block_g):

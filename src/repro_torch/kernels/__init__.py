@@ -10,6 +10,7 @@
                      block_override, the seam that forces blocks.
 """
 from .frugal_update import (frugal_program_dense,
+                            frugal_program_dense_planes,
                             frugal_program_dense_reference,
                             frugal_program_scatter,
                             frugal_program_scatter_reference)
@@ -17,6 +18,7 @@ from .ops import (block_override, frugal_update_auto, frugal_update_blocked,
                   frugal_update_sparse)
 
 __all__ = ["block_override", "frugal_program_dense",
-           "frugal_program_dense_reference", "frugal_program_scatter", "frugal_program_scatter_reference",
+           "frugal_program_dense_planes", "frugal_program_dense_reference",
+           "frugal_program_scatter", "frugal_program_scatter_reference",
            "frugal_update_auto", "frugal_update_blocked",
            "frugal_update_sparse"]

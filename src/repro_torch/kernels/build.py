@@ -112,7 +112,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     and the stream as ``c_void_p``, the sizes as ``c_int64``, the int32
     scalars as ``c_int32``."""
     fn = lib.frugal_dense_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int32] + [ctypes.c_void_p] * 14
                    + [ctypes.c_int64] * 3 + [ctypes.c_int32] * 6
                    + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int

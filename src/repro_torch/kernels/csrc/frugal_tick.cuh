@@ -270,14 +270,23 @@ FT_HD void ft_tick_2u_window(float& m, float& step, float& sign, float& m2,
 }
 
 // ------------------------------------------------------ dense group runs
-// Operands of one dense ingest call. Words are the program's serialized
-// state, unit-major (f32 head [+ i32 packed pair] per plane-pair), each [L]
-// and handled here as raw 32-bit words; unused slots are null.
+// The state formats a dense call reads and writes. Words are the program's
+// serialized state, unit-major (f32 head [+ i32 packed pair] per
+// plane-pair); planes its unpacked float32 planes in plane_fields order
+// (m [, step, sign] per unit). Either way each slot is [L] and handled
+// here as raw 32-bit words.
+enum FtStateFormat { FT_STATE_WORDS = 0, FT_STATE_PLANES = 1 };
+
+// Operands of one dense ingest call; unused state slots are null. The
+// field order is part of the kernel's speed: the compiler schedules the
+// tick loop differently for other layouts of this parameter block, and
+// with the format last B1 ran 2 % slower at 2U on an H100 (PERF.md).
 struct FtDenseArgs {
+  int32_t format;           // FtStateFormat of in and out
   const float* items;       // [T, G] float32, row-major (NaN = no-op tick)
   const float* quantile;    // [L] float32
-  const uint32_t* in[4];    // state words in
-  uint32_t* out[4];         // state words out
+  const uint32_t* in[6];    // state in: 1-4 words or 1-6 planes
+  uint32_t* out[6];         // state out, in the same format
   int64_t T;
   int64_t G;                // item columns; lane l reads column l / Q
   int64_t L;                // lanes = G * Q
@@ -290,26 +299,26 @@ struct FtDenseArgs {
 };
 
 inline FtDenseArgs ft_dense_args(
-    const float* items, const float* quantile, const void* in0,
-    const void* in1, const void* in2, const void* in3, void* out0,
-    void* out1, void* out2, void* out3, int64_t T, int64_t G, int64_t Q,
+    int32_t format, const float* items, const float* quantile,
+    const void* in0, const void* in1, const void* in2, const void* in3,
+    const void* in4, const void* in5, void* out0, void* out1, void* out2,
+    void* out3, void* out4, void* out5, int64_t T, int64_t G, int64_t Q,
     int32_t seed, int32_t t_offset, int32_t g_offset, int32_t s0,
     int32_t s1) {
   FtDenseArgs a;
   a.items = items;
   a.quantile = quantile;
-  a.in[0] = (const uint32_t*)in0;
-  a.in[1] = (const uint32_t*)in1;
-  a.in[2] = (const uint32_t*)in2;
-  a.in[3] = (const uint32_t*)in3;
-  a.out[0] = (uint32_t*)out0;
-  a.out[1] = (uint32_t*)out1;
-  a.out[2] = (uint32_t*)out2;
-  a.out[3] = (uint32_t*)out3;
+  const void* in[6] = {in0, in1, in2, in3, in4, in5};
+  void* out[6] = {out0, out1, out2, out3, out4, out5};
+  for (int k = 0; k < 6; ++k) {
+    a.in[k] = (const uint32_t*)in[k];
+    a.out[k] = (uint32_t*)out[k];
+  }
   a.T = T;
   a.G = G;
   a.L = G * Q;
   a.Q = Q;
+  a.format = format;
   a.seed = seed;
   a.t_offset = t_offset;
   a.g_offset = g_offset;
@@ -436,10 +445,42 @@ struct FtGroup {
   uint32_t key[LPT];
 };
 
-// Unpack lanes lane0 .. lane0 + LPT - 1.
+// One lane's (step, sign) pair: its packed word at w[lane], or in the
+// planes format its step and sign planes at w[lane] and g[lane], passed
+// through the word all the same. So a plane reads as the word path's
+// (pack before the kernel, the kernel's unpack) reads it, out-of-domain
+// steps included: NaN to 0, saturation at FT_MAX_STEP, |step| < 2^-63 to 0
+// with its sign kept.
+FT_HD void ft_load_pair(bool planes, const uint32_t* w, const uint32_t* g,
+                        int64_t lane, float* step, float* sign) {
+  const uint32_t word =
+      planes ? ft_pack_step_sign(ft_as_float(w[lane]), ft_as_float(g[lane]))
+             : w[lane];
+  ft_unpack_step_sign(word, step, sign);
+}
+
+// The pair stored as its word, or in the planes format as the word's
+// unpacked step and sign (the kernel's pack, then the word path's unpack).
+FT_HD void ft_store_pair(bool planes, uint32_t* w, uint32_t* g, int64_t lane,
+                         float step, float sign) {
+  const uint32_t word = ft_pack_step_sign(step, sign);
+  if (!planes) {
+    w[lane] = word;
+    return;
+  }
+  float st, sg;
+  ft_unpack_step_sign(word, &st, &sg);
+  w[lane] = ft_as_bits(st);
+  g[lane] = ft_as_bits(sg);
+}
+
+// Load lanes lane0 .. lane0 + LPT - 1 from either state format. Slots:
+// words (m [, pair]) [, (m2 [, pair2])], planes (m [, step, sign])
+// [, (m2 [, step2, sign2])]; 1u and 1u-window are the same in both.
 template <int FAM, int LPT>
 FT_HD void ft_group_load(FtGroup<LPT>& s, const FtDenseArgs& a,
                          int64_t lane0) {
+  const bool planes = a.format == FT_STATE_PLANES;
   FT_PRAGMA(unroll)
   for (int l = 0; l < LPT; ++l) {
     const int64_t lane = lane0 + l;
@@ -449,29 +490,44 @@ FT_HD void ft_group_load(FtGroup<LPT>& s, const FtDenseArgs& a,
     s.step[l] = 1.0f; s.sign[l] = 1.0f;
     s.m2[l] = 0.0f; s.step2[l] = 1.0f; s.sign2[l] = 1.0f;
     if (FAM == FT_2U || FAM == FT_2U_DECAY || FAM == FT_2U_WINDOW)
-      ft_unpack_step_sign(a.in[1][lane], &s.step[l], &s.sign[l]);
+      ft_load_pair(planes, a.in[1], a.in[2], lane, &s.step[l], &s.sign[l]);
     if (FAM == FT_1U_WINDOW) s.m2[l] = ft_as_float(a.in[1][lane]);
     if (FAM == FT_2U_WINDOW) {
-      s.m2[l] = ft_as_float(a.in[2][lane]);
-      ft_unpack_step_sign(a.in[3][lane], &s.step2[l], &s.sign2[l]);
+      if (planes) {
+        s.m2[l] = ft_as_float(a.in[3][lane]);
+        ft_load_pair(true, a.in[4], a.in[5], lane, &s.step2[l],
+                     &s.sign2[l]);
+      } else {
+        s.m2[l] = ft_as_float(a.in[2][lane]);
+        ft_load_pair(false, a.in[3], nullptr, lane, &s.step2[l],
+                     &s.sign2[l]);
+      }
     }
   }
 }
 
-// Repack and store lanes lane0 .. lane0 + LPT - 1.
+// Store lanes lane0 .. lane0 + LPT - 1 in the format they were loaded in.
 template <int FAM, int LPT>
 FT_HD void ft_group_store(const FtGroup<LPT>& s, const FtDenseArgs& a,
                           int64_t lane0) {
+  const bool planes = a.format == FT_STATE_PLANES;
   FT_PRAGMA(unroll)
   for (int l = 0; l < LPT; ++l) {
     const int64_t lane = lane0 + l;
     a.out[0][lane] = ft_as_bits(s.m[l]);
     if (FAM == FT_2U || FAM == FT_2U_DECAY || FAM == FT_2U_WINDOW)
-      a.out[1][lane] = ft_pack_step_sign(s.step[l], s.sign[l]);
+      ft_store_pair(planes, a.out[1], a.out[2], lane, s.step[l], s.sign[l]);
     if (FAM == FT_1U_WINDOW) a.out[1][lane] = ft_as_bits(s.m2[l]);
     if (FAM == FT_2U_WINDOW) {
-      a.out[2][lane] = ft_as_bits(s.m2[l]);
-      a.out[3][lane] = ft_pack_step_sign(s.step2[l], s.sign2[l]);
+      if (planes) {
+        a.out[3][lane] = ft_as_bits(s.m2[l]);
+        ft_store_pair(true, a.out[4], a.out[5], lane, s.step2[l],
+                      s.sign2[l]);
+      } else {
+        a.out[2][lane] = ft_as_bits(s.m2[l]);
+        ft_store_pair(false, a.out[3], nullptr, lane, s.step2[l],
+                      s.sign2[l]);
+      }
     }
   }
 }

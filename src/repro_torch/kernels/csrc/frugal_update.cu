@@ -20,7 +20,13 @@
 //
 // What the design does about it. State stays in registers for the whole
 // T loop and crosses HBM once each way; the uniforms never touch memory;
-// outputs go to new buffers. Per tick, only what each lane must do is left
+// outputs go to new buffers. The state comes as the serialized words or
+// as the program's float32 planes (FtStateFormat, a runtime field read at
+// load and store only): the entry points hand planes, so a 2U lane moves
+// 12 bytes each way (m, step, sign) instead of 8, and its (step, sign)
+// pair goes through the packed word in registers (ft_load_pair,
+// ft_store_pair) where PyTorch elementwise passes packed and unpacked it
+// around every launch. Per tick, only what each lane must do is left
 // on the lane:
 //  (1) The tick-hash table. The (seed, t) round of the counter hash is the
 //      same for every lane, so before each tile the block's threads fill
@@ -335,25 +341,28 @@ static int ft_prepare(int family, int64_t T, int64_t G, int64_t Q,
 }
 
 // Launch the dense kernel of `family` (FtFamily) on `stream`, its item
-// tiles at most FT_DENSE_TILE_ROWS ticks tall. Writes the item producer used
-// (FtProducer) to *producer. Returns 0 on success, a cudaError_t, or
-// -(1000 + CUresult) when the tensor map cannot be encoded. Allocates
-// nothing and does not synchronise: a fault during the run surfaces at the
-// caller's next sync.
+// tiles at most FT_DENSE_TILE_ROWS ticks tall, the state in and out in
+// `format` (FtStateFormat): words in0.., or planes in0.. in plane order.
+// Writes the item producer used (FtProducer) to *producer. Returns 0 on
+// success, a cudaError_t, or -(1000 + CUresult) when the tensor map cannot
+// be encoded. Allocates nothing and does not synchronise: a fault during
+// the run surfaces at the caller's next sync.
 extern "C" int frugal_dense_launch(
-    int family, const float* items, const float* quantile,
+    int family, int32_t format, const float* items, const float* quantile,
     const void* in0, const void* in1, const void* in2, const void* in3,
-    void* out0, void* out1, void* out2, void* out3,
-    int64_t T, int64_t G, int64_t Q,
+    const void* in4, const void* in5, void* out0, void* out1, void* out2,
+    void* out3, void* out4, void* out5, int64_t T, int64_t G, int64_t Q,
     int32_t seed, int32_t t_offset, int32_t g_offset, int32_t s0, int32_t s1,
     int32_t block_g, void* stream, int32_t* producer) {
+  if (format != FT_STATE_WORDS && format != FT_STATE_PLANES)
+    return (int)cudaErrorInvalidValue;
   FtDensePlan p;
   FtDenseKernel kernel;
   int err = ft_prepare(family, T, G, Q, block_g, items, &p, &kernel);
   if (err != 0) return err;
-  const FtDenseArgs a = ft_dense_args(items, quantile, in0, in1, in2, in3,
-                                      out0, out1, out2, out3, T, G, Q, seed,
-                                      t_offset, g_offset, s0, s1);
+  const FtDenseArgs a = ft_dense_args(
+      format, items, quantile, in0, in1, in2, in3, in4, in5, out0, out1, out2,
+      out3, out4, out5, T, G, Q, seed, t_offset, g_offset, s0, s1);
   CUtensorMap map;
   memset(&map, 0, sizeof map);
   if (p.producer == FT_PRODUCER_TMA) {

@@ -123,20 +123,24 @@ int ft_host_tick(int family, int64_t n, float* m, float* step, float* sign,
 }
 
 // The dense kernel's whole launch (block_g threads a block, tiles at most
-// FT_DENSE_TILE_ROWS ticks tall), run on the host. Writes the launch's
-// plan to plan_out = {lanes per thread, tile rows, tile columns, box
-// columns, tiles, blocks} when it is not null.
-int ft_host_dense(int family, const float* items, const float* quantile,
-                  const void* in0, const void* in1, const void* in2,
-                  const void* in3, void* out0, void* out1, void* out2,
-                  void* out3, int64_t T, int64_t G, int64_t Q, int32_t seed,
-                  int32_t t_offset, int32_t g_offset, int32_t s0, int32_t s1,
-                  int32_t block_g, int64_t* plan_out) {
-  if (block_g <= 0 || block_g % 32 != 0 || T <= 0 || G <= 0 || Q <= 0)
+// FT_DENSE_TILE_ROWS ticks tall, the state in `format`: FtStateFormat),
+// run on the host. Writes the launch's plan to plan_out = {lanes per
+// thread, tile rows, tile columns, box columns, tiles, blocks} when it is
+// not null.
+int ft_host_dense(int family, int32_t format, const float* items,
+                  const float* quantile, const void* in0, const void* in1,
+                  const void* in2, const void* in3, const void* in4,
+                  const void* in5, void* out0, void* out1, void* out2,
+                  void* out3, void* out4, void* out5, int64_t T, int64_t G,
+                  int64_t Q, int32_t seed, int32_t t_offset, int32_t g_offset,
+                  int32_t s0, int32_t s1, int32_t block_g,
+                  int64_t* plan_out) {
+  if (block_g <= 0 || block_g % 32 != 0 || T <= 0 || G <= 0 || Q <= 0 ||
+      (format != FT_STATE_WORDS && format != FT_STATE_PLANES))
     return 1;
-  const FtDenseArgs a = ft_dense_args(items, quantile, in0, in1, in2, in3,
-                                      out0, out1, out2, out3, T, G, Q, seed,
-                                      t_offset, g_offset, s0, s1);
+  const FtDenseArgs a = ft_dense_args(
+      format, items, quantile, in0, in1, in2, in3, in4, in5, out0, out1, out2,
+      out3, out4, out5, T, G, Q, seed, t_offset, g_offset, s0, s1);
   const FtDensePlan p = ft_dense_plan(T, G, Q, block_g,
                                       (uint64_t)(uintptr_t)items);
   if (plan_out) {

@@ -9,7 +9,11 @@ kernel of ``csrc/frugal_update.cu`` or raises; on CPU tensors it runs
 ``frugal_program_dense_reference``, the plain version. It replaces the JAX
 package's ``frugal_program_pallas_dma`` (B1), ``frugal_program_pallas``
 (B2, as launches of ``block_t`` rows) and ``frugal_program_pallas_gpu``
-(B4).
+(B4). ``frugal_program_dense_planes`` launches the same kernel on the
+program's unpacked planes: the kernel packs and unpacks a (step, sign)
+pair in registers as it loads and stores it, so the result is the word
+path's with the packing around it, bit for bit. The entry points
+(``ops.py``) use it.
 
 Sparse events: ``frugal_program_scatter`` applies K event slots, grouped
 into runs of one lane's events, in place to unpacked planes and an [L]
@@ -23,7 +27,8 @@ runs one round at a time. It replaces the JAX package's
 scatter kernel launches (and nothing else), so a run can show that its
 path went through the kernels; ``producer_launch_count`` splits the dense
 launches by the producer that staged their item tiles (TMA, or cp.async
-where the row stride G * 4 is not a multiple of 16 bytes).
+where the row stride G * 4 is not a multiple of 16 bytes), and
+``state_io_launch_count`` by the state format they read and wrote.
 """
 from __future__ import annotations
 
@@ -53,6 +58,10 @@ _INFO_FIELDS = ("lanes_per_thread", "ticks_per_step", "tile_rows",
 # its launches by producer.
 PRODUCERS = {1: "cp.async", 2: "tma"}
 producer_launch_count = dict.fromkeys(PRODUCERS.values(), 0)
+# The dense kernel's state formats, by FtStateFormat id; the wrappers count
+# their launches by format.
+STATE_FORMATS = {"words": 0, "planes": 1}
+state_io_launch_count = dict.fromkeys(STATE_FORMATS, 0)
 _ENCODE_ERROR_BASE = 1000   # FT_ENCODE_ERROR_BASE of csrc/frugal_update.cu
 
 
@@ -65,23 +74,30 @@ def _scalar_slots(program, scalars):
     return vals
 
 
-def _check_operands(program, items, words, quantile, lanes_per_group):
+def _check_operands(program, items, state, quantile, lanes_per_group, *,
+                    planes=False):
+    """The dense operands: items [T, G] float32, the state as the layout's
+    words (or, with ``planes``, its float32 planes), each [G·Q], and [G·Q]
+    float32 targets, all on the items' device."""
     layout = program.layout
     if items.dim() != 2 or items.dtype != torch.float32:
         raise ValueError(f"items must be [T, G] float32, got "
                          f"{tuple(items.shape)} {items.dtype}")
     lanes = items.shape[1] * lanes_per_group
-    if len(words) != layout.num_words:
-        raise ValueError(f"{program.family}: {len(words)} state words, "
-                         f"layout has {layout.num_words}")
-    for w, dt in zip(words, layout.word_dtypes):
+    what = "plane" if planes else "state word"
+    dtypes = ((torch.float32,) * layout.num_planes if planes
+              else layout.word_dtypes)
+    if len(state) != len(dtypes):
+        raise ValueError(f"{program.family}: {len(state)} {what}s, layout "
+                         f"has {len(dtypes)}")
+    for w, dt in zip(state, dtypes):
         if w.dtype != dt or tuple(w.shape) != (lanes,):
-            raise ValueError(f"state word {tuple(w.shape)} {w.dtype} != "
+            raise ValueError(f"{what} {tuple(w.shape)} {w.dtype} != "
                              f"[{lanes}] {dt}")
     if quantile.dtype != torch.float32 or tuple(quantile.shape) != (lanes,):
         raise ValueError(f"quantile must be [{lanes}] float32, got "
                          f"{tuple(quantile.shape)} {quantile.dtype}")
-    for x in (*words, quantile):
+    for x in (*state, quantile):
         if x.device != items.device:
             raise ValueError(f"operands on {x.device} and {items.device}; "
                              "move them to one device")
@@ -139,57 +155,97 @@ def frugal_program_dense(program, items, words, quantile, seed,
     launch the kernel or raise (a failed launch or tensor-map encode
     included).
     """
-    global launch_count
     with tracing.span("kernels.dense_launch"):
         if items.device.type == "cpu":
             return frugal_program_dense_reference(
                 program, items, words, quantile, seed, scalars,
                 t_offset=t_offset, g_offset=g_offset,
                 lanes_per_group=lanes_per_group)
-        if items.device.type != "cuda":
-            raise ValueError(f"no dense kernel for device {items.device}")
         _check_operands(program, items, words, quantile, lanes_per_group)
-        family = program.kernel_family
-        if family not in FAMILY_IDS:
-            raise ValueError(f"no kernel instantiation for program family "
-                             f"{family!r}; kernel families: "
-                             f"{tuple(FAMILY_IDS)}")
-        if block_g <= 0 or block_g > 1024 or block_g % 32:
-            raise ValueError(f"block_g must be a multiple of 32 in "
-                             f"[32, 1024], got {block_g}")
-        for x in (items, *words, quantile):
-            if not x.is_contiguous():
-                raise ValueError("the dense kernel takes contiguous tensors")
-        t_len, g = items.shape
-        outs = tuple(torch.empty_like(w) for w in words)
-        if t_len == 0:
-            for o, w in zip(outs, words):
-                o.copy_(w)
-            return outs
-        slots = _scalar_slots(program, scalars) + (0, 0)
-        ptr_in = [w.data_ptr() for w in words] + [None] * (4 - len(words))
-        ptr_out = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
-        from .build import load_library
+        return _launch_dense(program, "words", items, words, quantile, seed,
+                             scalars, t_offset, g_offset, lanes_per_group,
+                             block_g)
 
-        producer = ctypes.c_int32(0)
-        with torch.cuda.device(items.device):
-            stream = torch.cuda.current_stream(items.device).cuda_stream
-            err = load_library().frugal_dense_launch(
-                FAMILY_IDS[family], items.data_ptr(), quantile.data_ptr(),
-                *ptr_in, *ptr_out, t_len, g, lanes_per_group,
-                crng.wrap_i32(seed), crng.wrap_i32(t_offset),
-                crng.wrap_i32(g_offset), slots[0], slots[1], block_g, stream,
-                ctypes.byref(producer))
-        if err <= -_ENCODE_ERROR_BASE:
-            raise RuntimeError(f"frugal_dense_launch: the items' tensor map "
-                               f"could not be encoded: CUresult "
-                               f"{-err - _ENCODE_ERROR_BASE}")
-        if err != 0:
-            raise RuntimeError(f"frugal_dense_launch failed: cudaError_t "
-                               f"{err}")
-        launch_count += 1
-        producer_launch_count[PRODUCERS[producer.value]] += 1
+
+def frugal_program_dense_planes(program, items, planes, quantile, seed,
+                                scalars=None, *, t_offset=0, g_offset=0,
+                                lanes_per_group=1, block_g=DEFAULT_BLOCK_G):
+    """``frugal_program_dense`` on the program's plane tuple (each [G·Q]
+    float32, ``plane_fields`` order): one launch of the same kernel, which
+    reads and writes the planes; returns new plane tensors.
+
+    The result is ``layout.unpack_words(frugal_program_dense(...,
+    layout.pack_planes(planes), ...))`` bit for bit: each (step, sign)
+    pair passes through its packed word in the kernel's load and store, so
+    steps outside the packing's domain (NaN, beyond 2^32, below 2^-63)
+    come out as the word path leaves them, and T = 0 returns the planes
+    through that round trip. CPU tensors run that composition on the plain
+    version."""
+    with tracing.span("kernels.dense_launch"):
+        _check_operands(program, items, planes, quantile, lanes_per_group,
+                        planes=True)
+        layout = program.layout
+        if items.shape[0] == 0:
+            return tuple(p.clone() for p in
+                         layout.unpack_words(layout.pack_planes(planes)))
+        if items.device.type == "cpu":
+            return layout.unpack_words(frugal_program_dense_reference(
+                program, items, layout.pack_planes(planes), quantile, seed,
+                scalars, t_offset=t_offset, g_offset=g_offset,
+                lanes_per_group=lanes_per_group))
+        return _launch_dense(program, "planes", items, planes, quantile,
+                             seed, scalars, t_offset, g_offset,
+                             lanes_per_group, block_g)
+
+
+def _launch_dense(program, fmt, items, state, quantile, seed, scalars,
+                  t_offset, g_offset, lanes_per_group, block_g):
+    """One launch of the dense kernel with the checked state in ``fmt`` (a
+    key of ``STATE_FORMATS``); new state tensors in the same format."""
+    global launch_count
+    if items.device.type != "cuda":
+        raise ValueError(f"no dense kernel for device {items.device}")
+    family = program.kernel_family
+    if family not in FAMILY_IDS:
+        raise ValueError(f"no kernel instantiation for program family "
+                         f"{family!r}; kernel families: "
+                         f"{tuple(FAMILY_IDS)}")
+    if block_g <= 0 or block_g > 1024 or block_g % 32:
+        raise ValueError(f"block_g must be a multiple of 32 in "
+                         f"[32, 1024], got {block_g}")
+    for x in (items, *state, quantile):
+        if not x.is_contiguous():
+            raise ValueError("the dense kernel takes contiguous tensors")
+    t_len, g = items.shape
+    outs = tuple(torch.empty_like(x) for x in state)
+    if t_len == 0:
+        for o, x in zip(outs, state):
+            o.copy_(x)
         return outs
+    slots = _scalar_slots(program, scalars) + (0, 0)
+    ptr_in = [x.data_ptr() for x in state] + [None] * (6 - len(state))
+    ptr_out = [o.data_ptr() for o in outs] + [None] * (6 - len(outs))
+    from .build import load_library
+
+    producer = ctypes.c_int32(0)
+    with torch.cuda.device(items.device):
+        stream = torch.cuda.current_stream(items.device).cuda_stream
+        err = load_library().frugal_dense_launch(
+            FAMILY_IDS[family], STATE_FORMATS[fmt], items.data_ptr(),
+            quantile.data_ptr(), *ptr_in, *ptr_out, t_len, g,
+            lanes_per_group, crng.wrap_i32(seed), crng.wrap_i32(t_offset),
+            crng.wrap_i32(g_offset), slots[0], slots[1], block_g, stream,
+            ctypes.byref(producer))
+    if err <= -_ENCODE_ERROR_BASE:
+        raise RuntimeError(f"frugal_dense_launch: the items' tensor map "
+                           f"could not be encoded: CUresult "
+                           f"{-err - _ENCODE_ERROR_BASE}")
+    if err != 0:
+        raise RuntimeError(f"frugal_dense_launch failed: cudaError_t {err}")
+    launch_count += 1
+    producer_launch_count[PRODUCERS[producer.value]] += 1
+    state_io_launch_count[fmt] += 1
+    return outs
 
 
 # ------------------------------------------------------------ sparse events

@@ -9,13 +9,16 @@
     against L resident lanes with per-lane clocks, in one launch (B3, the
     run kernel).
 
-The two dense entry points take and return the program's plane tuple,
-pack it into the serialized words around the kernel, and fan [T, G] items
-out to G·Q lanes (``lanes_per_group`` = Q) by index on the device. The JAX
-padding contract (padded lanes dropped, NaN-padded ticks as no-ops) holds
-without padded copies: the kernel masks the ragged lane edge and stops its
-row loop at T. The sparse path keeps its planes unpacked (its traffic is
-O(K); packing would cost an O(L) pass).
+The two dense entry points take and return the program's plane tuple and
+hand it to the kernel as it is: the kernel reads and writes the planes and
+passes each (step, sign) pair through its packed word in registers, so the
+bits are the serialized words' (``kernels.frugal_update.
+frugal_program_dense_planes``) with no pass over the state around the
+launch. They fan [T, G] items out to G·Q lanes (``lanes_per_group`` = Q)
+by index on the device. The JAX padding contract (padded lanes dropped,
+NaN-padded ticks as no-ops) holds without padded copies: the kernel masks
+the ragged lane edge and stops its row loop at T. The sparse path keeps
+its planes unpacked too.
 
 Dispatch is by the tensors' device: CUDA runs the kernel, CPU the plain
 version. On CUDA tensors ``frugal_update_auto`` takes its block size from
@@ -34,7 +37,7 @@ import torch
 from repro_torch import tracing
 from repro_torch.core import rng as crng
 
-from .frugal_update import (DEFAULT_BLOCK_G, frugal_program_dense,
+from .frugal_update import (DEFAULT_BLOCK_G, frugal_program_dense_planes,
                             frugal_program_scatter)
 
 
@@ -52,23 +55,24 @@ def _dense(items, planes, quantile, seed, t_offset, g_offset, program,
     device = planes[0].device
     if items.device != device:
         raise ValueError(f"items on {items.device}, state on {device}")
-    layout = program.layout
     with tracing.span("ops.pack"):
         items = items.to(torch.float32).contiguous()
         lanes = planes[0].shape[0]
         q = torch.broadcast_to(
             torch.as_tensor(quantile, dtype=torch.float32, device=device),
             (lanes,)).contiguous()
-        words = tuple(w.contiguous() for w in layout.pack_planes(planes))
+        planes = tuple(p.contiguous() for p in planes)
     t_len = items.shape[0]
     step = t_len if block_t is None else block_t
-    for r0 in range(0, t_len, max(step, 1)):
-        words = frugal_program_dense(
-            program, items[r0:r0 + step], words, q, seed,
+    # T = 0 still makes one call: it returns the planes through the
+    # packed word, as every call does.
+    for r0 in range(0, max(t_len, 1), max(step, 1)):
+        planes = frugal_program_dense_planes(
+            program, items[r0:r0 + step], planes, q, seed,
             t_offset=crng.wrap_i32(t_offset + r0), g_offset=g_offset,
             lanes_per_group=lanes_per_group, block_g=block_g)
     with tracing.span("ops.unpack"):
-        return layout.unpack_words(words)
+        return tuple(planes)
 
 
 def frugal_update_blocked(items, planes, quantile, seed, t_offset=0,

@@ -17,6 +17,7 @@ JAX is imported inside the tests that use it: the card tests run where JAX
 is not installed (``--noconftest``, see README.md).
 """
 import ctypes
+import dataclasses
 import os
 import re
 import shutil
@@ -204,8 +205,8 @@ def tick_lib(tmp_path_factory):
     lib.ft_host_window_phase.argtypes = [i64, p, i32, p, p]
     lib.ft_host_tick.argtypes = [i, i64] + [p] * 9 + [i32] * 3
     lib.ft_host_tick.restype = i
-    lib.ft_host_dense.argtypes = ([i] + [p] * 10 + [i64] * 3 + [i32] * 6
-                                  + [p])
+    lib.ft_host_dense.argtypes = ([i, i32] + [p] * 14 + [i64] * 3
+                                  + [i32] * 6 + [p])
     lib.ft_host_dense.restype = i
     lib.ft_host_tick_table.argtypes = [i64, i32, i32, p]
     return lib
@@ -324,11 +325,33 @@ def test_header_tick_matches_program_tick(tick_lib, prog):
                           f"{prog.family} t={t}")
 
 
+def host_dense(tick_lib, tprog, fmt, items, quantile, state, q, t_off,
+               g_off, seed, block_g):
+    """One launch of the dense kernel run on the host (ft_host_dense: the
+    plan, tick tables, staged tiles and ft_run_group) with the state in
+    ``fmt`` (a key of ``STATE_FORMATS``); returns (state out, plan)."""
+    state = [np.ascontiguousarray(x) for x in state]
+    outs = [np.empty_like(x) for x in state]
+    pin = [ptr(x) for x in state] + [None] * (6 - len(state))
+    pout = [ptr(o) for o in outs] + [None] * (6 - len(outs))
+    sc = tprog.scalar_values() + (0, 0)
+    plan = np.zeros(6, np.int64)
+    t, g = items.shape
+    rc = tick_lib.ft_host_dense(
+        tkernel.FAMILY_IDS[tprog.kernel_family], tkernel.STATE_FORMATS[fmt],
+        ptr(items), ptr(quantile), *pin, *pout, t, g, q, seed,
+        trng.wrap_i32(t_off), trng.wrap_i32(g_off), sc[0], sc[1], block_g,
+        ptr(plan))
+    assert rc == 0
+    return outs, dict(zip(("lpt", "rows", "cols", "box", "tiles", "blocks"),
+                          plan.tolist()))
+
+
 def host_dense_vs_jax(tick_lib, tprog, g, q, t, t_off, g_off, seed,
                       block_g, case_seed):
-    """The dense kernel's launch run on the host (ft_host_dense: the plan,
-    tick tables, staged tiles and ft_run_group) against the JAX scan
-    ``program_process_seeded``, bit-exact; returns the launch's plan."""
+    """The dense kernel's launch run on the host against the JAX scan
+    ``program_process_seeded``, words in and out, bit-exact; returns the
+    launch's plan."""
     jnp, jfrugal, _, jprog = jax_side(tprog.family)
     items, quantile, planes = make_case(tprog, g, q, t, seed=case_seed)
     layout = jprog.layout
@@ -337,21 +360,12 @@ def host_dense_vs_jax(tick_lib, tprog, g, q, t, t_off, g_off, seed,
         seed, jnp.asarray(quantile), t_offset=t_off, g_offset=g_off,
         lanes_per_group=q)
     want = [np.asarray(w) for w in layout.pack_planes(jp)]
-    words = [np.ascontiguousarray(np.asarray(w)) for w in layout.pack_planes(
+    words = [np.asarray(w) for w in layout.pack_planes(
         tuple(jnp.asarray(p) for p in planes))]
-    outs = [np.empty_like(w) for w in words]
-    pin = [ptr(w) for w in words] + [None] * (4 - len(words))
-    pout = [ptr(o) for o in outs] + [None] * (4 - len(outs))
-    sc = tprog.scalar_values() + (0, 0)
-    plan = np.zeros(6, np.int64)
-    rc = tick_lib.ft_host_dense(
-        tkernel.FAMILY_IDS[tprog.kernel_family], ptr(items), ptr(quantile),
-        *pin, *pout, t, g, q, seed, trng.wrap_i32(t_off),
-        trng.wrap_i32(g_off), sc[0], sc[1], block_g, ptr(plan))
-    assert rc == 0
+    outs, plan = host_dense(tick_lib, tprog, "words", items, quantile, words,
+                            q, t_off, g_off, seed, block_g)
     assert_bits_equal(outs, want, f"{tprog.family} G={g} Q={q} T={t}")
-    return dict(zip(("lpt", "rows", "cols", "box", "tiles", "blocks"),
-                    plan.tolist()))
+    return plan
 
 
 @pytest.mark.parametrize("tprog", PROGS, ids=IDS)
@@ -404,6 +418,102 @@ def test_header_tick_table_is_counter_first_round(tick_lib, seed):
             trng.counter_bits(seed, ticks, lanes).numpy(),
             trng._fmix32(torch.from_numpy(th.view(np.int32))
                          + lanes * trng._C_GROUP).numpy())
+
+
+# ------------------------------------------- the state formats: planes
+# Steps outside the packing's domain, each planted with sign +1, -1 and 0:
+# the planes format has to leave them as the word path does (NaN to 0,
+# saturation below 2^32, |step| < 2^-63 to 0 with its sign kept).
+ODD_STEPS = np.asarray([np.nan, np.inf, -np.inf, 2.0 ** 40, -(2.0 ** 40),
+                        2.0 ** -70, -(2.0 ** -70), -0.0], np.float32)
+
+
+def plant_odd_steps(prog, planes):
+    """``planes`` with ODD_STEPS planted in the first lanes of every step
+    plane (its sign plane +1, -1, then 0 across three runs of them)."""
+    planes = [p.copy() for p in planes]
+    fields = prog.layout.plane_fields
+    n = ODD_STEPS.size
+    for f in fields:
+        if f.startswith("step"):
+            step = planes[fields.index(f)]
+            sign = planes[fields.index(f.replace("step", "sign"))]
+            for k, sgn in enumerate((1.0, -1.0, 0.0)):
+                step[k * n:(k + 1) * n] = ODD_STEPS
+                sign[k * n:(k + 1) * n] = sgn
+    return planes
+
+
+def words_around(prog, planes, run):
+    """The word path around ``run``: pack the planes (numpy) into words,
+    ``run`` them, unpack the words it returns into planes (torch)."""
+    layout = prog.layout
+    words = layout.pack_planes(tuple(torch.from_numpy(p) for p in planes))
+    out = run([w.numpy() for w in words])
+    return layout.unpack_words(tuple(torch.from_numpy(np.asarray(w))
+                                     for w in out))
+
+
+@pytest.mark.parametrize("t", [TILE, TILE + 3])
+@pytest.mark.parametrize("q", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("tprog", PROGS, ids=IDS)
+def test_header_dense_planes_match_words(tick_lib, tprog, q, t):
+    """ft_host_dense in the planes format against the word path around it
+    (unpack_words of ft_host_dense on pack_planes' words), bit for bit as
+    int32 patterns: every family, Q = 1..5 (lanes per thread 1-4, and one
+    lane per thread), T at and just past a tile edge, a ragged G, 32-thread
+    blocks, out-of-domain steps planted with both signs."""
+    g = 37
+    items, quantile, planes = make_case(tprog, g, q, t, seed=200 + q + t)
+    planes = plant_odd_steps(tprog, planes)
+    kw = dict(q=q, t_off=2 ** 31 - 11, g_off=2 ** 31 - 40, seed=-5,
+              block_g=32)
+    got, plan = host_dense(tick_lib, tprog, "planes", items, quantile,
+                           planes, **kw)
+    want = words_around(tprog, planes, lambda words: host_dense(
+        tick_lib, tprog, "words", items, quantile, words, **kw)[0])
+    assert_bits_equal(got, want, f"{tprog.family} Q={q} T={t}")
+    assert plan["lpt"] == (q if q <= 4 else 1) and plan["blocks"] > 1
+
+
+@pytest.mark.parametrize("t", [0, 70])
+@pytest.mark.parametrize("tprog", PROGS, ids=IDS)
+def test_dense_planes_plain_version_matches_words(tprog, t):
+    """frugal_program_dense_planes on CPU tensors against the word path
+    around frugal_program_dense, out-of-domain steps planted, T = 0 (the
+    planes through the packed word alone) included; no launch."""
+    g, q = 30, 3
+    items, quantile, planes = make_case(tprog, g, q, t, seed=300 + t)
+    planes = plant_odd_steps(tprog, planes)
+    kw = dict(t_offset=2 ** 31 - 20, g_offset=7, lanes_per_group=q)
+    x, qv = torch.from_numpy(items), torch.from_numpy(quantile)
+    before = dict(tkernel.state_io_launch_count)
+    got = tkernel.frugal_program_dense_planes(
+        tprog, x, tuple(torch.from_numpy(p) for p in planes), qv, 11, **kw)
+    assert tkernel.state_io_launch_count == before
+    want = words_around(tprog, planes, lambda words: (
+        tkernel.frugal_program_dense(
+            tprog, x, tuple(torch.from_numpy(w) for w in words), qv, 11,
+            **kw) if t else words))
+    assert_bits_equal(got, want, f"{tprog.family} T={t}")
+
+
+def test_dense_planes_refuse_bad_operands():
+    prog = tprogram.make_program("2u")
+    items = torch.zeros((3, 4))
+    planes = (torch.zeros(4), torch.ones(4), torch.ones(4))
+    q = torch.full((4,), 0.5)
+    dense = tkernel.frugal_program_dense_planes
+    with pytest.raises(ValueError, match="planes"):
+        dense(prog, items, planes[:2], q, 0)
+    with pytest.raises(ValueError, match="plane"):
+        dense(prog, items, (planes[0], planes[1].to(torch.int32), planes[2]),
+              q, 0)
+    with pytest.raises(ValueError, match="quantile"):
+        dense(prog, items, planes, q[:3], 0)
+    with pytest.raises(ValueError, match="no dense kernel"):
+        dense(prog, items.to("meta"), tuple(p.to("meta") for p in planes),
+              q.to("meta"), 0)
 
 
 # ---------------------------------------------------------------- the card
@@ -558,3 +668,96 @@ def test_card_fleet_matches_cpu_fleet(prog):
         np.testing.assert_array_equal(
             bits(getattr(cpu.state, f).numpy()),
             bits(getattr(card.state, f).cpu().numpy()), err_msg=f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1000, 1001], ids=["tma", "cp.async"])
+@pytest.mark.parametrize("prog", PROGS, ids=IDS)
+def test_card_planes_match_words(prog, g):
+    """The CUDA kernel in the planes format against the words format, with
+    the packing around it: every program, both item producers, Q = 3, T
+    past a tile edge, out-of-domain steps planted; one launch in each
+    format."""
+    _need_card()
+    q, t = 3, 2 * TILE + 5
+    items, quantile, planes = make_case(prog, g, q, t, seed=13)
+    planes = plant_odd_steps(prog, planes)
+    dev = torch.device("cuda")
+    x, qv = torch.from_numpy(items).to(dev), torch.from_numpy(quantile).to(dev)
+    kw = dict(t_offset=2 ** 31 - 40, g_offset=99, lanes_per_group=q)
+    io = dict(tkernel.state_io_launch_count)
+    producer = "tma" if g % 4 == 0 else "cp.async"
+    staged = tkernel.producer_launch_count[producer]
+    got = tkernel.frugal_program_dense_planes(
+        prog, x, tuple(torch.from_numpy(p).to(dev) for p in planes), qv, 7,
+        **kw)
+    want = words_around(prog, planes, lambda words: tuple(
+        w.cpu() for w in tkernel.frugal_program_dense(
+            prog, x, tuple(torch.from_numpy(w).to(dev) for w in words), qv,
+            7, **kw)))
+    torch.cuda.synchronize()
+    assert {k: v - io[k] for k, v in tkernel.state_io_launch_count.items()} \
+        == {"words": 1, "planes": 1}
+    assert tkernel.producer_launch_count[producer] - staged == 2
+    assert_bits_equal(got, want, f"{prog.family} G={g}")
+
+
+@pytest.mark.cuda
+def test_card_entry_points_launch_planes():
+    """One frugal_update_auto call is one dense launch in the planes
+    format and none in the words format."""
+    _need_card()
+    prog = tprogram.make_program("2u")
+    x, ps, qv = card_operands(prog, 1000, 3, 100, 14)
+    io = dict(tkernel.state_io_launch_count)
+    tops.frugal_update_auto(x, ps, qv, seed=2, program=prog,
+                            lanes_per_group=3)
+    torch.cuda.synchronize()
+    assert {k: v - io[k] for k, v in tkernel.state_io_launch_count.items()} \
+        == {"words": 0, "planes": 1}
+
+
+@pytest.mark.cuda
+def test_card_2u_stream_matches_the_word_path(monkeypatch):
+    """A 2U fleet's ingest_stream on the card against the same stream with
+    the entry points' launches made as they were before the kernel took
+    planes (pack_planes, frugal_program_dense, unpack_words): the same
+    planes and estimate(), out-of-domain steps planted in the start."""
+    _need_card()
+    from repro_torch.api import FleetSpec, QuantileFleet
+
+    prog = tprogram.make_program("2u")
+    g, t = 1001, 300
+    spec = FleetSpec(num_groups=g, quantiles=(0.5, 0.9, 0.99), chunk_t=128,
+                     program=prog)
+    rng = np.random.default_rng(15)
+    start = QuantileFleet.create(spec, seed=21, device="cuda").ingest(
+        rng.normal(1e4, 1250.0, (40, g)).astype(np.float32))
+    planes = plant_odd_steps(prog, [getattr(start.state, f).cpu().numpy()
+                                    for f in prog.layout.plane_fields])
+    start = dataclasses.replace(start, state=start.state.with_planes(
+        tuple(torch.from_numpy(p).cuda() for p in planes)))
+    chunks = [torch.from_numpy(rng.normal(1e4, 1250.0, (n, g)).astype(
+        np.float32)).cuda() for n in (t - 77, 77)]
+    io = dict(tkernel.state_io_launch_count)
+    now = start.ingest_stream(chunks)
+    torch.cuda.synchronize()
+    moved = {k: v - io[k] for k, v in tkernel.state_io_launch_count.items()}
+    assert moved["words"] == 0 and moved["planes"] > 0
+
+    layout = prog.layout
+
+    def word_path(program, items, planes, *args, **kw):
+        words = tuple(w.contiguous() for w in layout.pack_planes(planes))
+        return layout.unpack_words(tkernel.frugal_program_dense(
+            program, items, words, *args, **kw))
+
+    monkeypatch.setattr(tops, "frugal_program_dense_planes", word_path)
+    before = start.ingest_stream(chunks)
+    torch.cuda.synchronize()
+    for f in layout.plane_fields:
+        np.testing.assert_array_equal(
+            bits(getattr(now.state, f)), bits(getattr(before.state, f)),
+            err_msg=f)
+    np.testing.assert_array_equal(bits(now.estimate()),
+                                  bits(before.estimate()))

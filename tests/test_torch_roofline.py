@@ -277,8 +277,8 @@ def shim(tmp_path_factory):
     lib = ctypes.CDLL(str(out))
     p, i64, i32, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, \
         ctypes.c_int
-    lib.ft_host_dense.argtypes = ([i] + [p] * 10 + [i64] * 3 + [i32] * 6
-                                  + [p])
+    lib.ft_host_dense.argtypes = ([i, i32] + [p] * 14 + [i64] * 3
+                                  + [i32] * 6 + [p])
     lib.ft_host_dense.restype = i
     return lib
 
@@ -293,13 +293,14 @@ def shim_dense(lib, prog, items, words, quantile, q, seed, t_offset, g_offset,
     operands; returns (words out, plan)."""
     words = [np.ascontiguousarray(w) for w in words]
     outs = [np.empty_like(w) for w in words]
-    pin = [ptr(w) for w in words] + [None] * (4 - len(words))
-    pout = [ptr(o) for o in outs] + [None] * (4 - len(outs))
+    pin = [ptr(w) for w in words] + [None] * (6 - len(words))
+    pout = [ptr(o) for o in outs] + [None] * (6 - len(outs))
     sc = prog.scalar_values() + (0, 0)
     plan = np.zeros(6, np.int64)
     t, g = items.shape
     rc = lib.ft_host_dense(
-        tkernel.FAMILY_IDS[prog.kernel_family], ptr(items), ptr(quantile),
+        tkernel.FAMILY_IDS[prog.kernel_family],
+        tkernel.STATE_FORMATS["words"], ptr(items), ptr(quantile),
         *pin, *pout, t, g, q, seed, trng.wrap_i32(t_offset),
         trng.wrap_i32(g_offset), sc[0], sc[1], block_g, ptr(plan))
     assert rc == 0
