@@ -19,11 +19,21 @@ events around the call on the device's clock (the stream is idle at the
 hand-over, so the first event marks it); ``setup_s`` the host-clock
 seconds from the start of the process to the window. After the window:
 the peak device memory, then the check against the plain reference
-(``reference.py``), each number beside its limit. ``--trace 1`` runs the
-same window and then a second one of the same length recorded with
-``torch.profiler``, and prints the per-layer metrics: those of the host's
-clock from the first window, which the profiler does not slow, the
-others from the second.
+(``reference.py``), each number beside its limit.
+
+``--trace 1`` runs three windows of ``--seconds`` each, in this order,
+and prints the per-layer metrics. (1) The window above, untraced: the
+readers of the host's clock take it (``Window.call_s``). (2) A recorded
+window, the same loop inside ``repro_torch.tracing.recording()`` and
+under no profiler, which doubles the host's times: ``Window.spans``
+(``spans.py``) holds its record and each span name's entries, total and
+self time, and ``Window.counters`` the change over it of each program
+counter that the kind names in ``COUNTERS`` (pairs of a module of
+``repro_torch`` and an attribute), keyed ``"<module>.<attribute>"``.
+(3) A window recorded with ``torch.profiler``: ``Window.trace``, the
+kernel launch counters (``Window.launches``) and the window's length.
+Both fields of (2) are None in a ``--trace 0`` run, which runs window
+(1) alone.
 """
 from __future__ import annotations
 
@@ -75,6 +85,8 @@ class Window:
     work: dict
     program: object
     trace: Optional[devtrace.Trace] = None
+    spans: Optional[object] = None      # spans.Spans of the recorded window
+    counters: Optional[dict] = None     # program counters over it
 
 
 def load_manifest(root: Path = ROOT) -> dict:
@@ -117,6 +129,15 @@ def _counters():
     from repro_torch.kernels import frugal_update as fk
 
     return {"dense": fk.launch_count, "scatter": fk.scatter_launch_count}
+
+
+def _program_counters(pairs) -> dict:
+    """The kind's program counters, ``(module, attribute)`` pairs under
+    ``repro_torch``, as they stand."""
+    import importlib
+
+    return {f"{m}.{a}": getattr(importlib.import_module(f"repro_torch.{m}"),
+                                a) for m, a in pairs}
 
 
 def _sync(device):
@@ -191,10 +212,22 @@ def run_cell(manifest: dict, cell_name: str, seed: int, seconds: float,
     gc.collect()
     before, n0 = _counters(), driver.n
     window_s, apply_ms, call_s = _window(driver, seconds, device, False)
-    prof = None
+    prof = recorded = counted = None
     if trace:
+        from repro_torch import tracing
         from torch.profiler import ProfilerActivity, profile
 
+        from portbench import spans
+
+        c0, r0 = _program_counters(kind.COUNTERS), driver.n
+        with tracing.recording() as rec:
+            _window(driver, seconds, device, False)
+        c1 = _program_counters(kind.COUNTERS)
+        recorded = spans.summarize(rec, driver.n - r0)
+        counted = {k: c1[k] - c0[k] for k in c1}
+        # the record's spans live on: collect before the profiled window,
+        # as before the first one
+        gc.collect()
         prof = profile(activities=[ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if device.type == "cuda" else []))
         before, n0 = _counters(), driver.n
@@ -207,7 +240,8 @@ def run_cell(manifest: dict, cell_name: str, seed: int, seconds: float,
                  window_s=window_s, call_s=call_s,
                  launches={k: after[k] - before[k] for k in after},
                  work=driver.work(), program=driver.prog,
-                 trace=devtrace.read(prof) if prof is not None else None)
+                 trace=devtrace.read(prof) if prof is not None else None,
+                 spans=recorded, counters=counted)
 
     checks = driver.check(control)
     correct = all(v <= lim for v, lim in checks.values())

@@ -10,12 +10,57 @@ paper's initial state and (b) the window's last batch to the fleet's own
 state before it, each compared bit for bit with what the fleet returned;
 the estimates of ``estimate()`` are compared with the reference's query
 of (b), and the fleet's stream cursor with the ticks handed in.
+
+What every kind declares beside its ``Driver``, which the harness and its
+tests (``test_portbench_harness.py``) take from the cell's kind:
+``CPU_SIZE``, the keys of the configuration and mix that a CPU run
+overrides, and ``CPU_SIZE_CONTROL``, those the control's run overrides on
+top; ``FAULTS``, faults planted under the kind's own timed path as
+(module of ``repro_torch``, function, wrapper of the function), each of
+which must read ``correct`` false; ``LAUNCHES_PER_BATCH``, the kernel
+launches a batch makes; ``COUNTERS``, the program counters (module,
+attribute) whose change over a traced run's recorded window the metric
+readers get (``harness.Window.counters``). Dense: 37 groups (the
+control 2,000: bfloat16 differs from float32 mostly where a coin lands
+within its rounding of the target, so it needs some thousands of lanes
+to show every time), 8 rows, a ring of 2 and 2 warm-up batches; a chunk
+applied as no step, half of each chunk left out, and one estimate
+altered where the entry point returns it; one launch a batch; no program
+counter beyond the launch counts, which the harness reads for every kind.
 """
 from __future__ import annotations
 
 import torch
 
 from portbench import reference, traffic
+
+CPU_SIZE = {"config": {"num_groups": 37},
+            "mix": {"rows": 8, "ring": 2, "warmup_batches": 2}}
+CPU_SIZE_CONTROL = {"config": {"num_groups": 2000}}
+LAUNCHES_PER_BATCH = 1
+COUNTERS = ()
+
+
+def _unchanged(orig):
+    return lambda sk, chunk, *a, **k: sk
+
+
+def _half(orig):
+    return lambda sk, chunk, *a, **k: orig(sk, chunk[:chunk.shape[0] // 2],
+                                           *a, **k)
+
+
+def _altered(orig):
+    def f(*a, **k):
+        planes = orig(*a, **k)
+        planes[0][0] += 1.0
+        return planes
+    return f
+
+
+FAULTS = {"unchanged": ("core.streaming", "_apply_chunk", _unchanged),
+          "half": ("core.streaming", "_apply_chunk", _half),
+          "altered": ("kernels.ops", "frugal_update_auto", _altered)}
 
 
 class Driver:
